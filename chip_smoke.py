@@ -1,22 +1,40 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's main path, the client tracking step at the EuRoC
-operating point (752x480, 8 pyramid levels, 1024 feature slots, an
-8192-landmark map), through its entry points, in phases:
+Drives the port's two main paths through their entry points, in phases.
+The client tracking step at the EuRoC operating point (752x480, 8 pyramid
+levels, 1024 feature slots, an 8192-landmark map):
 
 1. check for a GPU and print its name and power limit;
-2. build the CUDA kernels (csrc/fast.cu) with nvcc;
+2. build the CUDA kernels (csrc/fast.cu and csrc/schur.cu), one nvcc for
+   each source, started together;
 3. K1 (masked_corner_score) against its plain version at all 8 pyramid
    level shapes, on a rendered frame and on a random image: bitwise;
 4. K2 (blur_and_moments) likewise: blur within 1e-3, moments within 1.0;
 5. track 20 rendered frames with the port's Tracker; every frame keeps
-   >= 15 inliers, the final camera centre is within 0.10 m of the truth,
-   and each kernel was launched 20 x 8 times;
+   >= 15 inliers, the final camera-centre error is within 0.10 m of the
+   truth, and each kernel was launched 20 x 8 times;
 6. time the step with the kernels and with their plain versions, and each
-   kernel alone against its plain version.
+   kernel alone against its plain version, its bound and a library call.
 
-Prints a JSON line of step results, one of kernel results and, last, the
-contract line ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
+The server's tile-stream GBA at the operating point of bench.py:bench_gba
+(2048 keyframes, 65,536 landmarks, 2,048,000 observations):
+
+7. print csrc/schur.cu's ptxas report (built in phase 2);
+8. K3-K7 against their plain versions at these shapes, from a seeded
+   perturbation of the problem (cameras 1.. by 0.005 rad / 0.04 m, points
+   by 0.05 m): one K3 pass, then K5, K4, K6 and K7 on its W stream with a
+   seeded v and u;
+9. 10 LM iterations from the perturbed start with the kernels and with
+   their plain versions: both lower the robust cost and agree (cost within
+   1e-3 relative, Tcw within 1e-3, Xw within 5e-3); launches K3 = 11,
+   K5 = K6 = K7 = 10, K4 >= 10;
+10. LM iterations/s on bench_gba's exact problem (1-iteration warm-up,
+    then 10 iterations), each of K3-K7 alone against its plain version, its
+    bound and a library call, and a torch.profiler split of one iteration.
+
+Prints a JSON line of step results, one of GBA results, one of kernel
+results, the card's name and power limit and, last, the contract line
+``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a GPU it exits non-zero before printing any result.
 
 Usage: python3 chip_smoke.py
@@ -30,6 +48,7 @@ import subprocess
 import sys
 import time
 import types
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -38,11 +57,40 @@ N_FRAMES = 20
 MIN_INLIERS = 15
 MAX_FINAL_ERR_M = 0.10
 K2_ATOL = (1e-3, 1.0, 1.0)   # blur, m10, m01
-KERNEL_SOURCE = "motioncheck_ccm_slam_tpu_torch/csrc/fast.cu"
+GBA_ITERS = 10
+GBA_BOUNDS = dict(cost_rtol=1e-3, Tcw_atol=1e-3, Xw_atol=5e-3)
+# K3-K7 against their plain versions, relative to each output's max-abs:
+# 1e-4 for sums taken by atomics in no fixed order and for FMA contraction;
+# 1e-3 for what is computed from a residual (rho, chi2, bl, bc), which is
+# ~1e3 times smaller than the projection it is taken from.
+SUM_RTOL, RESIDUAL_RTOL = 1e-4, 1e-3
+# The card's published peaks (SXM part, 700 W): HBM bytes/s, f32 flop/s
+# outside the tensor cores.
+PEAK_BYTES_PER_S, PEAK_F32_PER_S = 3.35e12, 67e12
+PKG = "motioncheck_ccm_slam_tpu_torch"
+SOURCE = {
+    "masked_corner_score": f"{PKG}/csrc/fast.cu",
+    "blur_and_moments": f"{PKG}/csrc/fast.cu",
+    "d1_assemble": f"{PKG}/csrc/schur.cu",
+    "s_apply": f"{PKG}/csrc/schur.cu",
+    "d2_precond": f"{PKG}/csrc/schur.cu",
+    "apply_a_raw": f"{PKG}/csrc/schur.cu",
+    "apply_b_raw": f"{PKG}/csrc/schur.cu",
+}
 REPLACES = {
     "masked_corner_score": "motioncheck_ccm_slam_tpu/ops/fast_pallas.py:297",
     "blur_and_moments": "motioncheck_ccm_slam_tpu/ops/fast_pallas.py:256",
+    "d1_assemble": "motioncheck_ccm_slam_tpu/ops/schur_pallas.py:893",
+    "s_apply": "motioncheck_ccm_slam_tpu/ops/schur_pallas.py:1033",
+    "d2_precond": "motioncheck_ccm_slam_tpu/ops/schur_pallas.py:919",
+    "apply_a_raw": "motioncheck_ccm_slam_tpu/ops/schur_pallas.py:990",
+    "apply_b_raw": "motioncheck_ccm_slam_tpu/ops/schur_pallas.py:1012",
 }
+GBA_KERNELS = ("d1_assemble", "s_apply", "d2_precond", "apply_a_raw", "apply_b_raw")
+# each wrapper's __global__ function in csrc/schur.cu, as the profiler names it
+KERNEL_SYMBOL = {"d1_assemble": "d1_assemble_kernel", "s_apply": "s_apply_kernel",
+                 "d2_precond": "d2_precond_kernel", "apply_a_raw": "apply_a_kernel",
+                 "apply_b_raw": "apply_b_kernel"}
 
 
 def check(cond, msg: str) -> None:
@@ -177,6 +225,342 @@ def plain_kernels():
         fast_cuda.masked_corner_score, fast_cuda.blur_and_moments = saved
 
 
+def bound_ms(n_bytes: float, n_ops: float):
+    """(least ms the card could take, "bytes" or "operations"): the larger
+    of the bytes over the memory rate and the f32 operations over the f32
+    rate."""
+    t_b, t_o = n_bytes / PEAK_BYTES_PER_S * 1e3, n_ops / PEAK_F32_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def relmax(a, b) -> float:
+    return float((a - b).abs().max() / (b.abs().max() + 1e-6))
+
+
+def turns_ms(kern, plain, k_reps: int, p_reps: int):
+    """(kernel ms, plain ms) by CUDA events, in turns plain, kernel,
+    kernel, plain."""
+    kern(), plain()
+    torch.cuda.synchronize()
+    p1 = cuda_ms(plain, p_reps)
+    k1 = cuda_ms(kern, k_reps)
+    k2 = cuda_ms(kern, k_reps)
+    p2 = cuda_ms(plain, p_reps)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+@contextlib.contextmanager
+def plain_gba_kernels():
+    """Route the GBA's K3-K7 calls to their plain versions (on CUDA
+    tensors), for the GBA run without the kernels. Yields name -> number
+    of plain-version calls in the block (for s_apply: the PCG sweeps)."""
+    from motioncheck_ccm_slam_tpu_torch.ops import schur_cuda
+
+    saved = {n: getattr(schur_cuda, n) for n in GBA_KERNELS}
+    calls = dict.fromkeys(GBA_KERNELS, 0)
+
+    def counted(n):
+        ref = getattr(schur_cuda, n + "_ref")
+
+        def call(*a, **kw):
+            calls[n] += 1
+            return ref(*a, **kw)
+        return call
+
+    for n in GBA_KERNELS:
+        setattr(schur_cuda, n, counted(n))
+    try:
+        yield calls
+    finally:
+        for n, f in saved.items():
+            setattr(schur_cuda, n, f)
+
+
+def k2_library_weight(device):
+    """K2's three maps as one 31x31, 3-channel F.conv2d weight: the blur's
+    7x7 outer product centred, each moment map's low-rank factors summed."""
+    from motioncheck_ccm_slam_tpu_torch.ops import fast_cuda
+
+    taps, r = fast_cuda._device_taps(device, 15)
+    kb = taps[:7]
+    kh = taps[7:7 + 62 * r].reshape(2 * r, 31)
+    kv = taps[7 + 62 * r:].reshape(2 * r, 31)
+    w = torch.zeros((3, 1, 31, 31), device=device)
+    w[0, 0, 12:19, 12:19] = kb[:, None] * kb[None, :]
+    w[1, 0] = kv[:r].T @ kh[:r]
+    w[2, 0] = kv[r:].T @ kh[r:]
+    return w, r
+
+
+def perturbed_state(Tcw, Xw, seed: int = 1):
+    """Cameras 1.. moved by se3 noise of 0.005 rad / 0.04 m, points by 0.05 m
+    (as tests/test_tile_gba._perturbed), from a numpy seed."""
+    from motioncheck_ccm_slam_tpu_torch.ops import lie
+
+    rng = np.random.default_rng(seed)
+    C, L = Tcw.shape[0], Xw.shape[0]
+    xi = np.zeros((C, 6), np.float32)
+    xi[1:, :3] = rng.normal(0, 0.005, (C - 1, 3))
+    xi[1:, 3:] = rng.normal(0, 0.04, (C - 1, 3))
+    dX = rng.normal(0, 0.05, (L, 3)).astype(np.float32)
+    Tp = lie.se3_exp(torch.from_numpy(xi).to(Tcw.device)) @ Tcw
+    return Tp.contiguous(), Xw + torch.from_numpy(dX).to(Xw.device)
+
+
+def profile_call(fn, args, n_iterations: int) -> dict:
+    """A torch.profiler split of one GBA call of n_iterations LM iterations:
+    device ms and launches per kernel (s_apply's launches are the call's
+    PCG sweeps), the rest of the device time, the host's scalar reads (the
+    PCG exit tests), the wall time under the profiler and the device's idle
+    share of that wall time. The profiler's tracing adds host time, so this
+    idle share is an upper bound on an unprofiled call's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn(*args, n_iterations=n_iterations)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    split = {n: 0.0 for n in GBA_KERNELS}
+    launches = {n: 0 for n in GBA_KERNELS}
+    dev_ms, n_sync, sync_ms, n_dev = 0.0, 0, 0.0, 0
+    for e in prof.events():
+        ms = e.time_range.elapsed_us() / 1e3
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dev_ms += ms
+            n_dev += 1
+            for n, sym in KERNEL_SYMBOL.items():
+                if sym in e.name:
+                    split[n] += ms
+                    launches[n] += 1
+        elif e.name == "aten::_local_scalar_dense":
+            n_sync += 1
+            sync_ms += ms
+    return {"wall_ms_under_profiler": wall_ms, "device_busy_ms": dev_ms,
+            "device_idle_share_under_profiler": 1.0 - dev_ms / wall_ms,
+            "k4_sweeps": launches["s_apply"], "device_ops": n_dev, "kernel_ms": split, "kernel_launches": launches,
+            "other_device_ms": dev_ms - sum(split.values()),
+            "host_scalar_reads": n_sync, "host_scalar_read_ms": sync_ms}
+
+
+def gba_phases(device, smi: str, schur_log: str) -> dict:
+    """Phases 7-10. Returns name -> kernel record for K3-K7 and the GBA
+    results."""
+    from motioncheck_ccm_slam_tpu_torch.entry import gba_entry
+    from motioncheck_ccm_slam_tpu_torch.ops import schur_cuda
+    from motioncheck_ccm_slam_tpu_torch.parallel import sharded_ba as sba
+    from motioncheck_ccm_slam_tpu_torch.solvers import ba_core
+
+    # phase 7: the build report of csrc/schur.cu
+    print(f"phase 7 build: {schur_cuda.library_path()}")
+    for line in schur_log.splitlines():
+        if "registers" in line or "Compiling entry" in line or "spill" in line:
+            print("  " + line.strip())
+
+    t0 = time.perf_counter()
+    fn, (Tcw, Xw, obs, K, fixed_cam, fixed_lm) = gba_entry(device)
+    C, L, O = Tcw.shape[0], Xw.shape[0], obs.cam_idx.shape[0]
+    torch.cuda.synchronize()
+    t_problem = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tp = sba.build_tile_plan(obs, C, L)
+    t_plan = time.perf_counter() - t0
+    OP, TP = tp.ntl * tp.TP, tp.TP
+    print(f"phase 8 problem: C={C} L={L} O={O}: TP={TP} ntl={tp.ntl} OP={OP} "
+          f"({100 * (OP - O) / OP:.1f}% pad) L_pad={tp.L_pad}; problem "
+          f"{t_problem:.2f} s, plan {t_plan:.2f} s on the host")
+    check((tp.TP, tp.ntl, OP, tp.L_pad) == (4224, 512, 2162688, 65536),
+          "the tile plan differs from bench_gba's (TP 4224, 512 tiles)")
+
+    # phase 8: K3-K7 against their plain versions at these shapes
+    Tcw_p, Xw_p = perturbed_state(Tcw, Xw)
+    fl_pad = torch.cat([fixed_lm, torch.ones(tp.L_pad - L, dtype=torch.bool, device=device)])
+    Xp_pad = torch.cat([Xw_p, torch.zeros((tp.L_pad - L, 3), device=device)])
+    st = sba.tile_streams(tp, obs, K, fixed_cam, fl_pad)
+    d1_args = (tp.camid, tp.lmloc, st.uv, st.is2, st.valid, st.free, st.kp,
+               sba._pose_table(Tcw_p), Xp_pad)
+    out = schur_cuda.d1_assemble(*d1_args, TP=TP)
+    ref = schur_cuda.d1_assemble_ref(*d1_args, TP=TP)
+    torch.cuda.synchronize()
+    W18, aux, hllbl, cam27 = out
+    rW, raux, rh, rc = ref
+    errs = {
+        "W18": (relmax(W18, rW), SUM_RTOL),
+        "rho": (relmax(aux[0], raux[0]), RESIDUAL_RTOL),
+        "chi2": (relmax(aux[2], raux[2]), RESIDUAL_RTOL),
+        "inlier_flips": (float((aux[1] != raux[1]).float().mean()), 1e-4),
+        "Hll": (relmax(hllbl[:9], rh[:9]), SUM_RTOL),
+        "bl": (relmax(hllbl[9:], rh[9:]), RESIDUAL_RTOL),
+        "Hcc": (relmax(cam27[:, :21], rc[:, :21]), SUM_RTOL),
+        "bc": (relmax(cam27[:, 21:], rc[:, 21:]), RESIDUAL_RTOL),
+    }
+    max_abs = {"d1_assemble": max(float((a - b).abs().max()) for a, b in zip(out, ref))}
+    for k, (e, tol) in errs.items():
+        check(e <= tol and np.isfinite(e), f"K3 {k} off its plain version by {e:.3g} > {tol}")
+    print("phase 8 K3 d1_assemble vs plain (relative to max-abs): "
+          + ", ".join(f"{k} {e:.3g}" for k, (e, _) in errs.items()))
+    n_active = int(st.valid.sum())
+    Hll_d = ba_core.damp_blocks(hllbl[0:9].T.reshape(tp.L_pad, 3, 3),
+                                torch.tensor(1e-4, device=device))
+    Hll_d = torch.where(fl_pad[:, None, None], torch.eye(3, device=device), Hll_d)
+    H9 = ba_core.inv33(Hll_d).reshape(tp.L_pad, 9).T.contiguous()
+    rng = np.random.default_rng(2)
+    v = torch.from_numpy(rng.normal(0, 1e-2, (C, 6)).astype(np.float32)).to(device)
+    u = torch.from_numpy(rng.normal(0, 1e-2, (3, tp.L_pad)).astype(np.float32)).to(device)
+    ids = (tp.camid, tp.lmloc, W18)
+    calls = {   # name -> args after (camid, lmloc, W18)
+        "d2_precond": (H9, C),
+        "s_apply": (v, H9),
+        "apply_a_raw": (v, H9),
+        "apply_b_raw": (u, C),
+    }
+    for name, rest in calls.items():
+        o = getattr(schur_cuda, name)(*ids, *rest, TP=TP)
+        r = getattr(schur_cuda, name + "_ref")(*ids, *rest, TP=TP)
+        torch.cuda.synchronize()
+        e = relmax(o, r)
+        max_abs[name] = float((o - r).abs().max())
+        check(o.isfinite().all().item() and e <= SUM_RTOL,
+              f"{name} off its plain version by {e:.3g} > {SUM_RTOL}")
+        print(f"phase 8 {name} vs plain: {e:.3g} of max-abs (max |d| {max_abs[name]:.3g})")
+    n_w = int((W18 != 0).any(0).sum())
+
+    # phase 9: 10 LM iterations from the perturbed start, kernels then plain
+    def robust_cost(T, X):
+        Xpad = torch.cat([X, torch.zeros((tp.L_pad - L, 3), device=device)])
+        return float(sba._tile_linearize(T, Xpad, tp, st)[4])
+
+    cost0 = robust_cost(Tcw_p, Xw_p)
+    fn(Tcw_p, Xw_p, obs, K, fixed_cam, fixed_lm, n_iterations=0)   # builds fn's plan
+    torch.cuda.synchronize()
+    for n in GBA_KERNELS:
+        getattr(schur_cuda, n).launches = 0
+    t0 = time.perf_counter()
+    res_k = fn(Tcw_p, Xw_p, obs, K, fixed_cam, fixed_lm, n_iterations=GBA_ITERS)
+    torch.cuda.synchronize()
+    t_k = time.perf_counter() - t0
+    launches = {n: getattr(schur_cuda, n).launches for n in GBA_KERNELS}
+    t0 = time.perf_counter()
+    with plain_gba_kernels() as plain_calls:
+        res_p = fn(Tcw_p, Xw_p, obs, K, fixed_cam, fixed_lm, n_iterations=GBA_ITERS)
+        torch.cuda.synchronize()
+    t_p = time.perf_counter() - t0
+    cost_k, cost_p = robust_cost(res_k.Tcw, res_k.Xw), robust_cost(res_p.Tcw, res_p.Xw)
+    gba = {
+        "robust_cost_start": cost0, "robust_cost_kernels": cost_k,
+        "robust_cost_plain": cost_p, "inlier_cost_kernels": float(res_k.cost),
+        "inlier_cost_plain": float(res_p.cost),
+        "Tcw_max_diff": float((res_k.Tcw - res_p.Tcw).abs().max()),
+        "Xw_max_diff": float((res_k.Xw - res_p.Xw).abs().max()),
+        "inliers_kernels": int(res_k.obs_inlier.sum()),
+        "inliers_plain": int(res_p.obs_inlier.sum()),
+        "gba_iters_per_s_perturbed_start": GBA_ITERS / t_k,
+        "k4_sweeps_perturbed_start": launches["s_apply"],
+        "gba_iters_per_s_perturbed_start_plain": GBA_ITERS / t_p,
+        "k4_sweeps_perturbed_start_plain": plain_calls["s_apply"],
+    }
+    print(f"phase 9 GBA, {GBA_ITERS} LM iterations from the perturbed start: robust cost "
+          f"{cost0:.6g} -> {cost_k:.6g} (kernels, {t_k:.2f} s, {launches['s_apply']} PCG "
+          f"sweeps) and {cost_p:.6g} (plain, {t_p:.2f} s, {plain_calls['s_apply']} sweeps); "
+          f"|dTcw| {gba['Tcw_max_diff']:.3g}, |dXw| {gba['Xw_max_diff']:.3g}; "
+          f"inlier cost {gba['inlier_cost_kernels']:.6g} vs {gba['inlier_cost_plain']:.6g}; "
+          f"launches {launches}")
+    check(np.isfinite(cost_k) and cost_k < cost0, "the kernels' GBA did not lower the cost")
+    check(np.isfinite(cost_p) and cost_p < cost0, "the plain GBA did not lower the cost")
+    for a, b in ((cost_k, cost_p), (gba["inlier_cost_kernels"], gba["inlier_cost_plain"])):
+        check(abs(a - b) <= GBA_BOUNDS["cost_rtol"] * max(abs(b), 1.0),
+              f"cost {a:.6g} with the kernels vs {b:.6g} plain")
+    check(gba["Tcw_max_diff"] < GBA_BOUNDS["Tcw_atol"], "Tcw differs from the plain run")
+    check(gba["Xw_max_diff"] < GBA_BOUNDS["Xw_atol"], "Xw differs from the plain run")
+    want = {"d1_assemble": 1 + GBA_ITERS, "d2_precond": GBA_ITERS,
+            "apply_a_raw": GBA_ITERS, "apply_b_raw": GBA_ITERS}
+    for n, k in want.items():
+        check(launches[n] == k, f"{n} launched {launches[n]} times, expected {k}")
+    check(launches["s_apply"] >= GBA_ITERS, f"s_apply launched {launches['s_apply']} times")
+
+    # phase 10: LM iterations/s on bench_gba's exact problem
+    args = (Tcw, Xw, obs, K, fixed_cam, fixed_lm)
+    float(fn(*args, n_iterations=1).cost)
+    n0 = schur_cuda.s_apply.launches
+    t0 = time.perf_counter()
+    res = fn(*args, n_iterations=GBA_ITERS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    sweeps = schur_cuda.s_apply.launches - n0
+    gba["gba_iters_per_s_2048kf_2Mobs"] = GBA_ITERS / dt
+    gba["k4_sweeps_2048kf_2Mobs"] = sweeps
+    gba["card"] = smi
+    check(bool(res.Tcw.isfinite().all()) and np.isfinite(float(res.cost)),
+          "non-finite GBA result on bench_gba's problem")
+    print(f"phase 10 gba_iters_per_s_2048kf_2Mobs {GBA_ITERS / dt:.4f} "
+          f"({dt:.3f} s for {GBA_ITERS} LM iterations, {sweeps} PCG sweeps, on {smi})")
+
+    # each kernel alone at these shapes (bench state): ms, plain ms, bound
+    X0 = torch.cat([Xw, torch.zeros((tp.L_pad - L, 3), device=device)])
+    d1_0 = d1_args[:7] + (sba._pose_table(Tcw), X0)
+    W0 = schur_cuda.d1_assemble(*d1_0, TP=TP)[0]
+    ids0 = (tp.camid, tp.lmloc, W0)
+    timed = {"d1_assemble": d1_0}
+    timed.update({n: ids0 + rest for n, rest in calls.items()})
+    slot_in = OP * (8 + 72)            # ids + the W row, read by K4-K7
+    f, Lp = 4, tp.L_pad
+    # f32 operations a slot, counted from csrc/schur.cu: K3 ~350 where the
+    # weight is non-zero (projection and robust weight ~43, Jacobians ~38,
+    # W 73, Hll + bl 60, Hcc + bc 135) and ~150 elsewhere (no sums); K4 72
+    # (A's stage 36, B's 36) on a slot with a non-zero W row, plus 15 a
+    # landmark solve; K5 216; K6 and K7 36
+    work = {   # name -> (bytes read once + written once, f32 operations)
+        "d1_assemble": (OP * (28 + 72 + 12) + C * (12 + 27) * f + Lp * (3 + 12) * f + 16,
+                        n_active * 350 + (OP - n_active) * 150),
+        "s_apply": (slot_in + C * 12 * f + Lp * 9 * f, n_w * 72 + Lp * 15),
+        "d2_precond": (slot_in + C * 21 * f + Lp * 9 * f, n_w * 216),
+        "apply_a_raw": (slot_in + C * 6 * f + Lp * 12 * f, n_w * 36 + Lp * 15),
+        "apply_b_raw": (slot_in + C * 6 * f + Lp * 3 * f, n_w * 36),
+    }
+    records = {}
+    for name, a in timed.items():
+        kern = getattr(schur_cuda, name)
+        plain = getattr(schur_cuda, name + "_ref")
+        k_ms, p_ms = turns_ms(lambda: kern(*a, TP=TP), lambda: plain(*a, TP=TP), 20, 3)
+        b_ms, b_by = bound_ms(*work[name])
+        records[name] = {"max_abs_err": max_abs[name], "ms": k_ms, "plain_ms": p_ms,
+                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        print(f"phase 10 {name}: {k_ms:.4f} ms vs plain {p_ms:.4f} ms; bound {b_ms:.4f} ms "
+              f"({b_by}), {100 * b_ms / k_ms:.1f}% of it")
+
+    # library yardstick for K7: one sparse (6C x 3L) CSR product
+    i6 = torch.arange(6, device=device)
+    j3 = torch.arange(3, device=device)
+    rows = (tp.camid.long()[None, None, :] * 6 + i6[None, :, None]).expand(3, 6, OP)
+    cols = (tp.lm_p[None, None, :] * 3 + j3[:, None, None]).expand(3, 6, OP)
+    Wsp = torch.sparse_coo_tensor(torch.stack([rows.reshape(-1), cols.reshape(-1)]),
+                                  W0.reshape(-1), (6 * C, 3 * Lp),
+                                  check_invariants=False).coalesce().to_sparse_csr()
+    u_flat = u.T.reshape(-1, 1).contiguous()
+    lib = (Wsp @ u_flat).reshape(C, 6)
+    mine = schur_cuda.apply_b_raw(*ids0, u, C, TP=TP)
+    check(relmax(lib, mine) <= SUM_RTOL, "the sparse yardstick disagrees with K7")
+    records["apply_b_raw"]["library_ms"] = cuda_ms(lambda: Wsp @ u_flat, 20)
+    del Wsp, rows, cols
+    print(f"phase 10 apply_b_raw library call (CSR sparse product): "
+          f"{records['apply_b_raw']['library_ms']:.4f} ms")
+    for n in GBA_KERNELS:
+        records[n]["launches"] = launches[n]
+
+    # torch.profiler splits of a 10-iteration call from each state (after one
+    # profile that is thrown away: the profiler's first use starts its tracer)
+    profile_call(fn, args, 1)
+    for label, a in (("bench_state", args),
+                     ("perturbed_start", (Tcw_p, Xw_p, obs, K, fixed_cam, fixed_lm))):
+        line = profile_call(fn, a, GBA_ITERS)
+        print(f"phase 10 profile of {GBA_ITERS} LM iterations from the {label.replace('_', ' ')}"
+              f": {json.dumps(line)}")
+        gba[f"profile_{label}"] = line
+    print(json.dumps({"gba": gba}))
+    return records
+
+
 def main() -> None:
     # phase 1: the card
     if not torch.cuda.is_available():
@@ -194,18 +578,20 @@ def main() -> None:
     from motioncheck_ccm_slam_tpu_torch.entry import entry
     from motioncheck_ccm_slam_tpu_torch.models import frame as frame_mod
     from motioncheck_ccm_slam_tpu_torch.models.tracking import Tracker, TrackState
-    from motioncheck_ccm_slam_tpu_torch.ops import fast_cuda, image as image_ops
+    from motioncheck_ccm_slam_tpu_torch.ops import fast_cuda, image as image_ops, schur_cuda
 
     cfg = DEFAULT_CONFIG
     ex = cfg.extractor
     k1_kw = dict(th_hi=float(ex.ini_th_fast), th_lo=float(ex.min_th_fast),
                  border=ex.edge_threshold)
 
-    # phase 2: build
+    # phase 2: build both sources, one nvcc each, started together
     t0 = time.perf_counter()
-    log = fast_cuda.build()
+    with ThreadPoolExecutor(2) as pool:
+        jobs = [pool.submit(fast_cuda.build), pool.submit(schur_cuda.build)]
+        log, schur_log = (j.result() for j in jobs)
     print(f"phase 2 build: {time.perf_counter() - t0:.2f} s "
-          f"({fast_cuda.library_path()})")
+          f"({fast_cuda.library_path()}, {schur_cuda.library_path()})")
     for line in log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             print("  " + line.strip())
@@ -316,13 +702,7 @@ def main() -> None:
         def plain_frame():
             return [plain(lv) for lv in lv1]
 
-        kern_frame(), plain_frame()
-        torch.cuda.synchronize()
-        p1 = cuda_ms(plain_frame, 5)
-        k1 = cuda_ms(kern_frame, 50)
-        k2 = cuda_ms(kern_frame, 50)
-        p2 = cuda_ms(plain_frame, 5)
-        kernel_ms[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        kernel_ms[name] = turns_ms(kern_frame, plain_frame, 50, 5)
         lv0_ms = cuda_ms(lambda: kern(lv1[0]), 100)
         print(f"phase 6 {name}: {kernel_ms[name][0]:.4f} ms per frame (8 levels) vs "
               f"plain {kernel_ms[name][1]:.4f} ms; level 0 {tuple(lv1[0].shape)} alone "
@@ -332,15 +712,52 @@ def main() -> None:
           f"({len(step_ms['kernel'])} steps each, on {smi})")
     check(all(np.isfinite(v) for v in step_med.values()), "non-finite step time")
 
+    # K1/K2 bounds per frame (8 levels): K1 does 16 ring taps x 17 f32 ops
+    # (1 difference, 4 compares, 4 x (subtract, max, add)) a pixel; K2 does
+    # the 7+7-tap blur and 2r separable moment channels of 31+31 FMA taps
+    w_k2, rank = k2_library_weight(device)
+    px_in = sum(lv.numel() for lv in lv1)
+    px_out = sum(int(np.prod(fast_cuda.padded_shape(*lv.shape))) for lv in lv1)
+    k_bound = {
+        "masked_corner_score": bound_ms(4 * (px_in + px_out), 16 * 17 * px_out),
+        "blur_and_moments": bound_ms(4 * (px_in + 3 * px_out),
+                                     (28 + 2 * rank * 62 * 2) * px_out),
+    }
+    # K2's library yardstick: one F.conv2d with a 3-channel 31x31 weight on
+    # each edge-padded level (the padding is input preparation, not timed);
+    # it sums the 961 taps in another order than the separable passes, so it
+    # is held to 1e-4 of each map's max-abs
+    padded = []
+    for lv in lv1:
+        hp, wc = fast_cuda.padded_shape(*lv.shape)
+        padded.append(torch.nn.functional.pad(
+            lv[None, None], (15, wc - lv.shape[1] + 15, 15, hp - lv.shape[0] + 15),
+            mode="replicate"))
+    for lv, x in zip(lv1, padded):
+        lib_maps = torch.nn.functional.conv2d(x, w_k2)[0]
+        for o, r in zip(lib_maps, fast_cuda.blur_and_moments_ref(lv)):
+            check(relmax(o, r) <= 1e-4, "the conv2d yardstick disagrees with K2's plain version")
+    lib_k2 = cuda_ms(lambda: [torch.nn.functional.conv2d(x, w_k2) for x in padded], 20)
+    print(f"phase 6 blur_and_moments library call (F.conv2d, 3x31x31): {lib_k2:.4f} ms per frame")
+    records = {}
+    for name in ("masked_corner_score", "blur_and_moments"):
+        b_ms, b_by = k_bound[name]
+        records[name] = {
+            "launches": launches[name],
+            "max_abs_err": k1_err if name == "masked_corner_score" else max(k2_err),
+            "ms": kernel_ms[name][0], "plain_ms": kernel_ms[name][1], "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": lib_k2 if name == "blur_and_moments" else None}
+        print(f"phase 6 {name}: bound {b_ms:.4f} ms per frame ({b_by})")
+
+    records.update(gba_phases(device, smi, schur_log))
+
     print(json.dumps({"step_ms": step_med["kernel"], "step_plain_ms": step_med["plain"],
                       "final_centre_error_m": errs[-1], "card": smi}))
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": REPLACES[name], "launches": launches[name],
-         "max_abs_err": k1_err if name == "masked_corner_score" else max(k2_err),
-         "ms": kernel_ms[name][0], "plain_ms": kernel_ms[name][1]}
-        for name in ("masked_corner_score", "blur_and_moments")
-    ]}))
+        {"name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],
+         **records[name]} for name in SOURCE]}))
+    print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

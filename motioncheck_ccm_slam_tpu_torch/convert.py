@@ -13,6 +13,7 @@ import torch
 
 from .models.map_state import MPBlock
 from .ops.orb import OrbFeatures
+from .solvers.ba_core import BAObservations
 
 
 def desc_from_numpy(desc, device) -> torch.Tensor:
@@ -68,6 +69,26 @@ def orb_features_from_numpy(feats, device) -> OrbFeatures:
         desc=desc_from_numpy(feats.desc, device),
         valid=_tensor(feats.valid, torch.bool, device),
     )
+
+
+def ba_observations_from_numpy(obs, device) -> BAObservations:
+    """A JAX ``BAObservations`` (or any object with its fields) -> the
+    port's, index fields widened to int64."""
+    return BAObservations(
+        cam_idx=_tensor(obs.cam_idx, torch.int64, device),
+        lm_idx=_tensor(obs.lm_idx, torch.int64, device),
+        uv=_tensor(obs.uv, torch.float32, device),
+        inv_sigma2=_tensor(obs.inv_sigma2, torch.float32, device),
+        valid=_tensor(obs.valid, torch.bool, device),
+    )
+
+
+def gba_state_from_numpy(Tcw, Xw, K, fixed_cam, fixed_lm, device):
+    """The GBA state (Tcw (C, 4, 4), Xw (L, 3), K (3, 3), fixed_cam (C,),
+    fixed_lm (L,)) as tensors on ``device``."""
+    return (_tensor(Tcw, torch.float32, device), _tensor(Xw, torch.float32, device),
+            _tensor(K, torch.float32, device), _tensor(fixed_cam, torch.bool, device),
+            _tensor(fixed_lm, torch.bool, device))
 
 
 def orb_features_to_numpy(feats: OrbFeatures) -> OrbFeatures:

@@ -31,7 +31,7 @@ class MPBlock(NamedTuple):
     valid: torch.Tensor        # (NM,) bool
 
 
-def empty_mp_block(nm: int, device: torch.device | str = "cpu") -> MPBlock:
+def empty_mp_block(nm: int, device: torch.device | str = "cuda") -> MPBlock:
     def full(shape, value, dtype):
         return torch.full(shape, value, dtype=dtype, device=device)
 

@@ -135,7 +135,7 @@ class Tracker:
 
     config: Config
     map: object
-    device: torch.device
+    device: torch.device = dataclasses.field(default_factory=lambda: torch.device("cuda"))
     state: TrackState = TrackState.NO_IMAGES_YET
     velocity: Optional[torch.Tensor] = None      # Tcl: last->current
     last_frame: Optional[frame_mod.Frame] = None

@@ -19,14 +19,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import os
-import subprocess
 from typing import Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from . import cuda_build
 
 # FAST ring: 16 contiguous (dx, dy) offsets of the radius-3 Bresenham circle
 # (shared with ops.orb; the same order is compiled into csrc/fast.cu).
@@ -44,11 +44,9 @@ HALO = 4      # ring radius 3, +1 slack
 TH = 64       # output rows are padded to a multiple of this
 CELL = 32     # threshold-retry cell; output columns pad to a multiple
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "fast.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = os.path.join(cuda_build.CSRC_DIR, "fast.cu")
+BUILD_DIR = cuda_build.BUILD_DIR
+NVCC_FLAGS = cuda_build.NVCC_FLAGS
 
 
 def _round_up(x: int, m: int) -> int:
@@ -64,51 +62,26 @@ def padded_shape(h: int, w: int) -> Tuple[int, int]:
 # Build and load
 # ---------------------------------------------------------------------------
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (CUDA_HOME unset, no nvcc)")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
 def library_path() -> str:
     """Path of the built library; the name carries the source and flag hash,
     so an edited source builds anew."""
-    h = hashlib.sha1()
-    with open(SOURCE, "rb") as f:
-        h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libmcs_fast_{h.hexdigest()[:12]}.so")
+    return cuda_build.library_path(SOURCE)
 
 
 def build() -> str:
     """Compile csrc/fast.cu with nvcc unless already built. Returns the
     compiler's output (ptxas register and shared-memory report), or "" if
     the library was already there."""
-    path = library_path()
-    if os.path.exists(path):
-        return ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                       capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-    os.replace(tmp, path)
-    return r.stdout + r.stderr
+    return cuda_build.build(SOURCE)
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    build()
-    lib = ctypes.CDLL(library_path())
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.mcs_masked_corner_score.argtypes = [p, i, i, p, i, i, f, f, i, p]
-    lib.mcs_masked_corner_score.restype = i
-    lib.mcs_blur_and_moments.argtypes = [p, i, i, p, i, p, p, p, i, i, p]
-    lib.mcs_blur_and_moments.restype = i
-    return lib
+    return cuda_build.load(SOURCE, {
+        "mcs_masked_corner_score": [p, i, i, p, i, i, f, f, i, p],
+        "mcs_blur_and_moments": [p, i, i, p, i, p, p, p, i, i, p],
+    })
 
 
 def _check_image(img: torch.Tensor) -> None:
@@ -122,11 +95,6 @@ def _check_image(img: torch.Tensor) -> None:
         raise ValueError("expected a contiguous image")
     if img.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {img.device}")
-
-
-def _check_launch(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
 
 
 # ---------------------------------------------------------------------------
@@ -201,7 +169,7 @@ def masked_corner_score(img: torch.Tensor, *, th_hi: float, th_lo: float,
         err = lib.mcs_masked_corner_score(
             img.data_ptr(), h, w, out.data_ptr(), hp, wc, float(th_hi),
             float(th_lo), int(border), torch.cuda.current_stream().cuda_stream)
-    _check_launch(err, "masked_corner_score")
+    cuda_build.check_launch(err, "masked_corner_score")
     masked_corner_score.launches += 1
     return out
 
@@ -267,7 +235,7 @@ def blur_and_moments(img: torch.Tensor, *, half_patch: int = 15):
             img.data_ptr(), h, w, taps.data_ptr(), rank, blur.data_ptr(),
             m10.data_ptr(), m01.data_ptr(), hp, wc,
             torch.cuda.current_stream().cuda_stream)
-    _check_launch(err, "blur_and_moments")
+    cuda_build.check_launch(err, "blur_and_moments")
     blur_and_moments.launches += 1
     return blur, m10, m01
 

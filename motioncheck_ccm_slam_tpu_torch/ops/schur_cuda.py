@@ -1,0 +1,431 @@
+"""Tile-stream GBA kernels K3-K7 as CUDA C++ for Hopper.
+
+Counterpart of ``motioncheck_ccm_slam_tpu/ops/schur_pallas.py``. The
+kernels live in ``csrc/schur.cu`` (plain C interface), are built with
+``nvcc`` for ``sm_90a`` into ``build/torch_kernels/`` at first use and
+loaded with ``ctypes``.
+
+Observations lie in landmark-aligned tiles (``build_schur_plan``): tile t
+holds the padded slots of landmarks [128t, 128t+128), ``TP`` slots a tile,
+``OP = ntl * TP`` slots in all. Per-slot streams are (rows, OP) or (OP,)
+tensors; landmark-side arrays are (rows, L_pad); camera-side arrays are
+(C, rows), unpacked (the Pallas kernels' 128-lane camera groups, one-hot
+gathers and bf16 splits are TPU layout and are not carried over).
+
+- ``d1_assemble`` (K3): one linearisation pass: the W stream, per-slot
+  rho / inlier / chi2, per-landmark Hll + bl, per-camera Hcc + bc.
+- ``s_apply`` (K4): the fused PCG product sum W Hll^-1 W^T v per camera.
+- ``d2_precond`` (K5): per-camera upper triangle of sum W Hll^-1 W^T.
+- ``apply_a_raw`` (K6): u = Hll^-1 sum W^T v[cam] per landmark.
+- ``apply_b_raw`` (K7): per-camera sum of W u[lm].
+
+Each wrapper has a plain torch version beside it (``*_ref``: per-slot
+tensor arithmetic plus ``index_add_``). A CPU tensor goes to the plain
+version; a CUDA tensor launches the kernel or raises. ``launches`` on each
+wrapper counts kernel launches (never plain-version calls). Camera-side
+sums are taken by atomics in no fixed order, so kernel and plain version
+agree to f32 rounding of sums, not bitwise.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from . import cuda_build
+from ..solvers.ba_core import CHI2_MONO, HUBER_DELTA
+
+LM_BLOCK = 128          # landmarks per tile
+PAIRS6 = [(i, j) for i in range(6) for j in range(i, 6)]   # Hcc upper triangle
+IU6 = np.array([p[0] for p in PAIRS6])
+JU6 = np.array([p[1] for p in PAIRS6])
+D1_CAM_ROWS = len(PAIRS6) + 6      # 21 Hcc + 6 bc
+D2_CAM_ROWS = len(PAIRS6)          # 21 S66
+
+SOURCE = os.path.join(cuda_build.CSRC_DIR, "schur.cu")
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+class SchurPlan(NamedTuple):
+    """Host-built static plan of the landmark-aligned tile stream.
+
+    ``perm`` maps tile slots to positions in the landmark-sorted
+    observation stream; pad slots map to O (one past the end). Pad slots
+    have camera 0 and tile-local landmark 0.
+    """
+
+    ntl: int                # number of landmark tiles (L_pad / 128)
+    TP: int                 # padded slots per tile, a multiple of 128
+    L_pad: int              # L rounded up to a multiple of 128
+    perm: np.ndarray        # (ntl*TP,) i64 into the sorted stream (pad -> O)
+    camid: np.ndarray       # (ntl*TP,) i32, pad -> 0
+    lmloc: np.ndarray       # (ntl*TP,) i32 tile-local landmark id, pad -> 0
+
+
+def build_schur_plan(lm_sorted, cam_sorted, L: int, valid_sorted=None) -> SchurPlan:
+    """Numpy copy of the JAX package's plan builder.
+
+    lm_sorted: (O,) landmark id per sorted-stream position (nondecreasing);
+    cam_sorted: (O,) camera id per sorted position; valid_sorted: optional
+    (O,) bool: invalid observations are left out of the plan (their weights
+    are zero). The kernels loop over a tile's slots, so no tile width is
+    too wide and the plan always exists.
+    """
+    lm_sorted = np.asarray(lm_sorted, np.int64)
+    cam_sorted = np.asarray(cam_sorted, np.int64)
+    O = lm_sorted.shape[0]
+    if valid_sorted is not None:
+        keep = np.flatnonzero(np.asarray(valid_sorted, bool))
+    else:
+        keep = np.arange(O, dtype=np.int64)
+    lm_k = lm_sorted[keep]
+    cam_k = cam_sorted[keep]
+    L_pad = _round_up(max(L, 1), LM_BLOCK)
+    ntl = L_pad // LM_BLOCK
+    counts = np.bincount(lm_k, minlength=L_pad)
+    bounds = np.zeros(L_pad + 1, np.int64)
+    bounds[1:] = np.cumsum(counts)
+    tile_counts = bounds[LM_BLOCK::LM_BLOCK] - bounds[:-LM_BLOCK:LM_BLOCK]
+    TP = int(_round_up(max(int(tile_counts.max()) if ntl else 1, 1), 128))
+    perm = np.full((ntl, TP), O, np.int64)
+    camid = np.zeros((ntl, TP), np.int32)
+    lmloc = np.zeros((ntl, TP), np.int32)
+    for t in range(ntl):
+        s, e = bounds[t * LM_BLOCK], bounds[(t + 1) * LM_BLOCK]
+        n = e - s
+        perm[t, :n] = keep[s:e]
+        camid[t, :n] = cam_k[s:e]
+        lmloc[t, :n] = lm_k[s:e] - t * LM_BLOCK
+    return SchurPlan(ntl=ntl, TP=TP, L_pad=L_pad,
+                     perm=perm.reshape(-1), camid=camid.reshape(-1),
+                     lmloc=lmloc.reshape(-1))
+
+
+def sym6_from_tri(tri: torch.Tensor) -> torch.Tensor:
+    """(C, 21) upper-triangle rows in PAIRS6 order -> (C, 6, 6) symmetric."""
+    C = tri.shape[0]
+    H = torch.zeros((C, 6, 6), dtype=tri.dtype, device=tri.device)
+    H[:, IU6, JU6] = tri
+    H[:, JU6, IU6] = tri
+    return H
+
+
+# ---------------------------------------------------------------------------
+# Build, load, argument checks
+# ---------------------------------------------------------------------------
+
+def library_path() -> str:
+    return cuda_build.library_path(SOURCE)
+
+
+def build() -> str:
+    """Compile csrc/schur.cu with nvcc unless already built; returns the
+    compiler's output (ptxas report), or "" if it was already there."""
+    return cuda_build.build(SOURCE)
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return cuda_build.load(SOURCE, {
+        "mcs_d1_assemble": [p] * 9 + [i, i] + [p] * 5,
+        "mcs_s_apply": [p] * 5 + [i, i, p, p],
+        "mcs_d2_precond": [p] * 4 + [i, i, p, p],
+        "mcs_apply_a": [p] * 5 + [i, i, p, p],
+        "mcs_apply_b": [p] * 4 + [i, i, p, p],
+    })
+
+
+def _check(t, name: str, dtype, shape, device: Optional[torch.device] = None) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a torch.Tensor, got {type(t).__name__}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+
+
+def _check_ids(camid, lmloc, TP: int) -> int:
+    """Checks the slot ids; returns ntl."""
+    if not isinstance(camid, torch.Tensor) or camid.dim() != 1:
+        raise ValueError("camid: expected a 1-D (OP,) tensor")
+    OP = camid.shape[0]
+    if TP <= 0 or OP == 0 or OP % TP or TP % 128:
+        raise ValueError(f"OP={OP} must be a positive multiple of TP={TP}, "
+                         "itself a multiple of 128")
+    _check(camid, "camid", torch.int32, (OP,))
+    _check(lmloc, "lmloc", torch.int32, (OP,), camid.device)
+    return OP // TP
+
+
+def _slot_lm(lmloc: torch.Tensor, TP: int) -> torch.Tensor:
+    """(OP,) global landmark id of each slot."""
+    tiles = torch.arange(lmloc.shape[0], device=lmloc.device) // TP
+    return tiles * LM_BLOCK + lmloc.long()
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# K3: one linearisation pass
+# ---------------------------------------------------------------------------
+
+def d1_assemble_ref(camid, lmloc, uv, is2, valid, free, kp, pose, X, *, TP: int):
+    """Plain torch version of K3 (the arithmetic of the Pallas kernel's
+    ``_project`` and ``_d1_kernel``, slot by slot)."""
+    OP = camid.shape[0]
+    L_pad = OP // TP * LM_BLOCK
+    C = pose.shape[0]
+    cam = camid.long()
+    lm = _slot_lm(lmloc, TP)
+    T = pose[cam]                                    # (OP, 12)
+    R = T[:, :9].reshape(-1, 3, 3)
+    Xs = X[lm]
+    pc = (R * Xs[:, None, :]).sum(-1) + T[:, 9:]     # (OP, 3)
+    pc0, pc1, pc2 = pc.unbind(1)
+    fx, fy, cx, cy = kp.unbind(0)
+    front = pc2 > 1e-6
+    iz = 1.0 / torch.where(front, pc2, torch.ones_like(pc2))
+    rx = uv[:, 0] - (fx * pc0 * iz + cx)
+    ry = uv[:, 1] - (fy * pc1 * iz + cy)
+    chi2 = (rx * rx + ry * ry) * is2
+    e = torch.sqrt(torch.clamp_min(chi2, 1e-12))
+    d = HUBER_DELTA
+    core = e <= d
+    hw = torch.where(core, torch.ones_like(e), d / e)
+    w = is2 * hw * valid * front.float()
+    rho = torch.where(core, chi2, 2.0 * d * e - d * d) * valid
+    inlier = valid * front.float() * (chi2 <= CHI2_MONO).float()
+    a00, a02 = fx * iz, -fx * pc0 * iz * iz
+    a11, a12 = fy * iz, -fy * pc1 * iz * iz
+    zero = torch.zeros_like(a00)
+    Jc0 = torch.stack([-(a02 * pc1), -(a00 * pc2 - a02 * pc0), a00 * pc1,
+                       -a00, zero, -a02])                       # (6, OP)
+    Jc1 = torch.stack([a11 * pc2 - a12 * pc1, a12 * pc0, -a11 * pc0,
+                       zero, -a11, -a12])
+    Rt = R.permute(1, 2, 0)                                     # (3, 3, OP)
+    Jl0 = -(a00 * Rt[0] + a02 * Rt[2])                          # (3, OP)
+    Jl1 = -(a11 * Rt[1] + a12 * Rt[2])
+    wf = w * free
+    W18 = (wf * (Jc0[None] * Jl0[:, None] + Jc1[None] * Jl1[:, None])).reshape(18, OP)
+    aux = torch.stack([rho, inlier, chi2])
+    lm9 = w * (Jl0[:, None] * Jl0[None] + Jl1[:, None] * Jl1[None])   # (3, 3, OP)
+    bl = -w * (Jl0 * rx + Jl1 * ry)
+    lm_rows = torch.cat([lm9.reshape(9, OP), bl])               # (12, OP)
+    hllbl = torch.zeros((L_pad, 12), dtype=X.dtype, device=X.device)
+    hllbl.index_add_(0, lm, lm_rows.T)
+    iu = torch.as_tensor(IU6, device=X.device)
+    ju = torch.as_tensor(JU6, device=X.device)
+    hcc = w * (Jc0[iu] * Jc0[ju] + Jc1[iu] * Jc1[ju])            # (21, OP)
+    bc = -w * (Jc0 * rx + Jc1 * ry)                             # (6, OP)
+    cam27 = torch.zeros((C, D1_CAM_ROWS), dtype=X.dtype, device=X.device)
+    cam27.index_add_(0, cam, torch.cat([hcc, bc]).T)
+    return W18.contiguous(), aux, hllbl.T.contiguous(), cam27
+
+
+def d1_assemble(camid, lmloc, uv, is2, valid, free, kp, pose, X, *, TP: int):
+    """One fused linearisation pass over the tile stream.
+
+    camid, lmloc (OP,) i32; uv (OP, 2); is2, valid, free (OP,) f32 (valid
+    and free are 0/1); kp (4,) = fx, fy, cx, cy; pose (C, 12) = R row-major
+    then t per camera; X (L_pad, 3). Returns W18 (18, OP) in J-major rows
+    (row j*6+i = W[i, j], masked by free), aux (3, OP) = rho / inlier /
+    chi2, hllbl (12, L_pad) = 9 Hll rows (j*3+k) + 3 bl rows, cam27 (C, 27)
+    = 21 Hcc upper-triangle rows (PAIRS6) + 6 bc rows.
+    """
+    ntl = _check_ids(camid, lmloc, TP)
+    OP, L_pad, dev = camid.shape[0], ntl * LM_BLOCK, camid.device
+    f32 = torch.float32
+    _check(uv, "uv", f32, (OP, 2), dev)
+    for name, t in (("is2", is2), ("valid", valid), ("free", free)):
+        _check(t, name, f32, (OP,), dev)
+    _check(kp, "kp", f32, (4,), dev)
+    if not isinstance(pose, torch.Tensor) or pose.dim() != 2:
+        raise ValueError("pose: expected a (C, 12) tensor")
+    C = pose.shape[0]
+    _check(pose, "pose", f32, (C, 12), dev)
+    _check(X, "X", f32, (L_pad, 3), dev)
+    if dev.type == "cpu":
+        return d1_assemble_ref(camid, lmloc, uv, is2, valid, free, kp, pose, X, TP=TP)
+    lib = _library()
+    with torch.cuda.device(dev):
+        W18 = torch.empty((18, OP), dtype=f32, device=dev)
+        aux = torch.empty((3, OP), dtype=f32, device=dev)
+        hllbl = torch.empty((12, L_pad), dtype=f32, device=dev)
+        cam27 = torch.zeros((C, D1_CAM_ROWS), dtype=f32, device=dev)
+        err = lib.mcs_d1_assemble(
+            camid.data_ptr(), lmloc.data_ptr(), uv.data_ptr(), is2.data_ptr(),
+            valid.data_ptr(), free.data_ptr(), kp.data_ptr(), pose.data_ptr(),
+            X.data_ptr(), ntl, TP, W18.data_ptr(), aux.data_ptr(),
+            hllbl.data_ptr(), cam27.data_ptr(), _stream())
+    cuda_build.check_launch(err, "d1_assemble")
+    d1_assemble.launches += 1
+    return W18, aux, hllbl, cam27
+
+
+d1_assemble.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K6 / K7: the two halves of the Schur product; K4 fuses them
+# ---------------------------------------------------------------------------
+
+def apply_a_raw_ref(camid, lmloc, W18, v, H9, *, TP: int):
+    """Plain torch version of K6: u (3, L_pad) = Hll^-1 sum_obs W^T v[cam]."""
+    OP, L_pad = camid.shape[0], H9.shape[1]
+    W = W18.reshape(3, 6, OP)                                   # [j, i]
+    wtv = (W * v[camid.long()].T[None]).sum(1)                  # (3, OP)
+    u_part = torch.zeros((L_pad, 3), dtype=v.dtype, device=v.device)
+    u_part.index_add_(0, _slot_lm(lmloc, TP), wtv.T)
+    H = H9.T.reshape(L_pad, 3, 3)
+    return torch.einsum("lij,lj->il", H, u_part).contiguous()
+
+
+def apply_b_raw_ref(camid, lmloc, W18, u, C: int, *, TP: int):
+    """Plain torch version of K7: (C, 6) per-camera sums of W u[lm]."""
+    OP = camid.shape[0]
+    W = W18.reshape(3, 6, OP)
+    ug = u[:, _slot_lm(lmloc, TP)]                              # (3, OP)
+    rows6 = (W * ug[:, None]).sum(0)                            # (6, OP)
+    out = torch.zeros((C, 6), dtype=u.dtype, device=u.device)
+    out.index_add_(0, camid.long(), rows6.T)
+    return out
+
+
+def s_apply_ref(camid, lmloc, W18, v, H9, *, TP: int):
+    """Plain torch version of K4: K7 after K6."""
+    u = apply_a_raw_ref(camid, lmloc, W18, v, H9, TP=TP)
+    return apply_b_raw_ref(camid, lmloc, W18, u, v.shape[0], TP=TP)
+
+
+def _check_w(camid, lmloc, W18, TP: int):
+    ntl = _check_ids(camid, lmloc, TP)
+    _check(W18, "W18", torch.float32, (18, camid.shape[0]), camid.device)
+    return ntl
+
+
+def _check_v(v, dev):
+    if not isinstance(v, torch.Tensor) or v.dim() != 2:
+        raise ValueError("v: expected a (C, 6) tensor")
+    _check(v, "v", torch.float32, (v.shape[0], 6), dev)
+    return v.shape[0]
+
+
+def apply_a_raw(camid, lmloc, W18, v, H9, *, TP: int):
+    """K6: u (3, L_pad) = Hll^-1[l] @ sum_{obs of l} W^T v[cam], with H9
+    (9, L_pad) holding Hll^-1 rows i*3+j."""
+    ntl = _check_w(camid, lmloc, W18, TP)
+    dev, L_pad = camid.device, ntl * LM_BLOCK
+    _check_v(v, dev)
+    _check(H9, "H9", torch.float32, (9, L_pad), dev)
+    if dev.type == "cpu":
+        return apply_a_raw_ref(camid, lmloc, W18, v, H9, TP=TP)
+    lib = _library()
+    with torch.cuda.device(dev):
+        u = torch.empty((3, L_pad), dtype=torch.float32, device=dev)
+        err = lib.mcs_apply_a(camid.data_ptr(), lmloc.data_ptr(), W18.data_ptr(),
+                              v.data_ptr(), H9.data_ptr(), ntl, TP, u.data_ptr(),
+                              _stream())
+    cuda_build.check_launch(err, "apply_a_raw")
+    apply_a_raw.launches += 1
+    return u
+
+
+apply_a_raw.launches = 0
+
+
+def apply_b_raw(camid, lmloc, W18, u, C: int, *, TP: int):
+    """K7: (C, 6) per-camera sums of W u[lm], u (3, L_pad)."""
+    ntl = _check_w(camid, lmloc, W18, TP)
+    dev, L_pad = camid.device, ntl * LM_BLOCK
+    _check(u, "u", torch.float32, (3, L_pad), dev)
+    if dev.type == "cpu":
+        return apply_b_raw_ref(camid, lmloc, W18, u, C, TP=TP)
+    lib = _library()
+    with torch.cuda.device(dev):
+        out = torch.zeros((C, 6), dtype=torch.float32, device=dev)
+        err = lib.mcs_apply_b(camid.data_ptr(), lmloc.data_ptr(), W18.data_ptr(),
+                              u.data_ptr(), ntl, TP, out.data_ptr(), _stream())
+    cuda_build.check_launch(err, "apply_b_raw")
+    apply_b_raw.launches += 1
+    return out
+
+
+apply_b_raw.launches = 0
+
+
+def s_apply(camid, lmloc, W18, v, H9, *, TP: int):
+    """K4: one fused W Hll^-1 W^T v product -> (C, 6) per-camera sums; u
+    never leaves shared memory (each slot's W row is read twice, once by
+    each stage). The caller forms S v = Hcc_d v - result."""
+    ntl = _check_w(camid, lmloc, W18, TP)
+    dev, L_pad = camid.device, ntl * LM_BLOCK
+    C = _check_v(v, dev)
+    _check(H9, "H9", torch.float32, (9, L_pad), dev)
+    if dev.type == "cpu":
+        return s_apply_ref(camid, lmloc, W18, v, H9, TP=TP)
+    lib = _library()
+    with torch.cuda.device(dev):
+        out = torch.zeros((C, 6), dtype=torch.float32, device=dev)
+        err = lib.mcs_s_apply(camid.data_ptr(), lmloc.data_ptr(), W18.data_ptr(),
+                              v.data_ptr(), H9.data_ptr(), ntl, TP, out.data_ptr(),
+                              _stream())
+    cuda_build.check_launch(err, "s_apply")
+    s_apply.launches += 1
+    return out
+
+
+s_apply.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5: the true-Schur block-Jacobi preconditioner
+# ---------------------------------------------------------------------------
+
+def d2_precond_ref(camid, lmloc, W18, H9, C: int, *, TP: int):
+    """Plain torch version of K5: (C, 21) upper triangles of
+    sum_obs W Hll^-1[l] W^T."""
+    OP = camid.shape[0]
+    Wm = W18.reshape(3, 6, OP).permute(1, 0, 2)                # [i, j] = W[i, j]
+    G = H9[:, _slot_lm(lmloc, TP)].reshape(3, 3, OP)
+    WG = torch.einsum("ijo,jko->iko", Wm, G)
+    S = torch.einsum("iko,jko->ijo", WG, Wm)                    # (6, 6, OP)
+    rows = S[torch.as_tensor(IU6, device=S.device), torch.as_tensor(JU6, device=S.device)]
+    out = torch.zeros((C, D2_CAM_ROWS), dtype=W18.dtype, device=W18.device)
+    out.index_add_(0, camid.long(), rows.T)
+    return out
+
+
+def d2_precond(camid, lmloc, W18, H9, C: int, *, TP: int):
+    """K5: (C, 21) per-camera upper triangle (PAIRS6) of sum W Hll^-1 W^T."""
+    ntl = _check_w(camid, lmloc, W18, TP)
+    dev, L_pad = camid.device, ntl * LM_BLOCK
+    _check(H9, "H9", torch.float32, (9, L_pad), dev)
+    if dev.type == "cpu":
+        return d2_precond_ref(camid, lmloc, W18, H9, C, TP=TP)
+    lib = _library()
+    with torch.cuda.device(dev):
+        out = torch.zeros((C, D2_CAM_ROWS), dtype=torch.float32, device=dev)
+        err = lib.mcs_d2_precond(camid.data_ptr(), lmloc.data_ptr(), W18.data_ptr(),
+                                 H9.data_ptr(), ntl, TP, out.data_ptr(), _stream())
+    cuda_build.check_launch(err, "d2_precond")
+    d2_precond.launches += 1
+    return out
+
+
+d2_precond.launches = 0

@@ -4,15 +4,20 @@ of the JAX package, and none imports triton at module level (the CPU test
 host has no triton). The port's copy of the config holds the JAX package's
 operating points."""
 import dataclasses
+import inspect
 import json
 import os
 import subprocess
 import sys
 
 import pytest
+import torch
 
 from motioncheck_ccm_slam_tpu import config as jconfig
 from motioncheck_ccm_slam_tpu_torch import config as tconfig
+from motioncheck_ccm_slam_tpu_torch import entry as tentry
+from motioncheck_ccm_slam_tpu_torch.models import map_state as tmap
+from motioncheck_ccm_slam_tpu_torch.models import tracking as ttrack
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -38,9 +43,10 @@ def test_port_imports_no_jax_and_no_triton():
     expected = {
         "motioncheck_ccm_slam_tpu_torch." + m for m in (
             "config", "convert", "entry", "ops.lie", "ops.geometry", "ops.image",
-            "ops.fast_cuda", "ops.orb", "ops.matching", "solvers.ba_core",
-            "solvers.pose_opt", "models.map_state", "models.frame",
-            "models.tracking")
+            "ops.cuda_build", "ops.fast_cuda", "ops.schur_cuda", "ops.orb",
+            "ops.matching", "solvers.ba_core", "solvers.pose_opt",
+            "solvers.local_ba", "models.map_state", "models.frame",
+            "models.tracking", "parallel.sharded_ba")
     }
     assert expected <= set(out["modules"]), expected - set(out["modules"])
     assert out["jax"] == []
@@ -61,3 +67,11 @@ def test_config_copy_matches_jax_package(name):
                  (t.camera.dist_coeffs(), j.camera.dist_coeffs())):
         assert a.dtype == b.dtype
         assert (a == b).all()
+
+
+def test_entry_points_default_to_the_card():
+    """The port runs on the card unless the caller asks for the CPU."""
+    for fn in (tentry.entry, tentry.gba_entry, tmap.empty_mp_block):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+    t = ttrack.Tracker(config=tconfig.DEFAULT_CONFIG, map=None)
+    assert t.device == torch.device("cuda")

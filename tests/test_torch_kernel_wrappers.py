@@ -1,18 +1,26 @@
-"""The K1/K2 wrappers of the torch port (ops/fast_cuda.py): routing,
-argument checks and launch counting.
+"""The kernel wrappers of the torch port (ops/fast_cuda.py: K1/K2,
+ops/schur_cuda.py: K3-K7): routing, argument checks and launch counting.
 
 A CPU tensor runs the plain version and counts no launch; a malformed
 argument raises. The tests marked ``cuda`` need an NVIDIA GPU and skip
 elsewhere; on the card (``python -m pytest --noconftest -m cuda
 tests/test_torch_kernel_wrappers.py``) they hold each kernel against its
 plain version: K1 bitwise, K2 within blur 1e-3 / moments 1.0 (FMA
-contraction).
+contraction); K3-K7 relative to each output's max-abs within 1e-4 (sums
+of ~30 terms taken by atomics in no fixed order, FMA contraction), and
+within 1e-3 for what is computed from residuals (rho, chi2, bl, bc: a
+residual is ~1e3 times smaller than the projection it is taken from, so
+one ulp there is ~1e-4 of it).
 """
+import types
+
 import numpy as np
 import pytest
 import torch
 
-from motioncheck_ccm_slam_tpu_torch.ops import fast_cuda
+from motioncheck_ccm_slam_tpu_torch import convert
+from motioncheck_ccm_slam_tpu_torch.ops import fast_cuda, schur_cuda
+from motioncheck_ccm_slam_tpu_torch.parallel import sharded_ba
 
 K1_ARGS = dict(th_hi=20.0, th_lo=7.0, border=19)
 
@@ -87,3 +95,120 @@ def test_kernels_match_plain_versions_on_card(cuda_device, shape):
     assert torch.equal(out, fast_cuda.masked_corner_score_ref(img, **K1_ARGS))
     for m, r, atol in zip(maps, fast_cuda.blur_and_moments_ref(img), (1e-3, 1.0, 1.0)):
         torch.testing.assert_close(m, r, rtol=0, atol=atol)
+
+
+# ---------------------------------------------------------------------------
+# K3-K7
+# ---------------------------------------------------------------------------
+
+GBA_KERNELS = ("d1_assemble", "s_apply", "d2_precond", "apply_a_raw", "apply_b_raw")
+
+
+def _gba_inputs(device, seed=0, C=130, L=300, O=4000):
+    """A small tile-stream problem built in numpy: random cameras and
+    landmarks, 10% of the observations invalid, camera 0 and landmark 5
+    fixed; the kernel inputs of K3 and, for K4-K7, a W stream from K3's
+    plain version, an SPD Hll^-1, a v and a u."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-2, 2, (L, 3)).astype(np.float32)
+    pts[:, 2] += 8.0
+    Tcw = np.tile(np.eye(4, dtype=np.float32), (C, 1, 1))
+    Tcw[:, :3, 3] = rng.normal(0, 0.3, (C, 3))
+    cam = rng.integers(0, C, O)
+    lm = rng.integers(0, L, O)
+    pc = pts[lm] + Tcw[cam, :3, 3]
+    uv = 458.0 * pc[:, :2] / pc[:, 2:] + np.array([376.0, 240.0])
+    uv = (uv + rng.normal(0, 2.0, uv.shape)).astype(np.float32)
+    obs = convert.ba_observations_from_numpy(types.SimpleNamespace(
+        cam_idx=cam, lm_idx=lm, uv=uv, inv_sigma2=np.ones(O, np.float32),
+        valid=rng.uniform(size=O) < 0.9), device)
+    fixed_cam, fixed_lm = np.zeros(C, bool), np.zeros(L, bool)
+    fixed_cam[0], fixed_lm[5] = True, True
+    K = np.array([[458.0, 0, 376.0], [0, 458.0, 240.0], [0, 0, 1]], np.float32)
+    Tcw_t, Xw_t, K_t, fc, fl = convert.gba_state_from_numpy(Tcw, pts, K, fixed_cam,
+                                                            fixed_lm, device)
+    tp = sharded_ba.build_tile_plan(obs, C, L)
+    fl_pad = torch.cat([fl, torch.ones(tp.L_pad - L, dtype=torch.bool, device=device)])
+    st = sharded_ba.tile_streams(tp, obs, K_t, fc, fl_pad)
+    X = torch.cat([Xw_t, torch.zeros((tp.L_pad - L, 3), device=device)])
+    d1_args = (tp.camid, tp.lmloc, st.uv, st.is2, st.valid, st.free, st.kp,
+               sharded_ba._pose_table(Tcw_t), X)
+    W18 = schur_cuda.d1_assemble_ref(*d1_args, TP=tp.TP)[0]
+    Q = rng.normal(0, 0.05, (tp.L_pad, 3, 3)).astype(np.float32)
+    H = np.eye(3, dtype=np.float32) * rng.uniform(0.2, 2.0, (tp.L_pad, 1, 1)) \
+        + Q @ Q.transpose(0, 2, 1)
+    H9 = torch.from_numpy(np.ascontiguousarray(H.reshape(-1, 9).T.astype(np.float32)))
+    v = torch.from_numpy(rng.normal(0, 1, (C, 6)).astype(np.float32))
+    u = torch.from_numpy(rng.normal(0, 1, (3, tp.L_pad)).astype(np.float32))
+    return dict(tp=tp, C=C, d1_args=d1_args, W18=W18, H9=H9.to(device), v=v.to(device),
+                u=u.to(device))
+
+
+def _gba_calls(g):
+    """name -> (wrapper args, keyword args) for each of K3-K7."""
+    tp = g["tp"]
+    ids = (tp.camid, tp.lmloc, g["W18"])
+    return {
+        "d1_assemble": (g["d1_args"], {}),
+        "s_apply": (ids + (g["v"], g["H9"]), {}),
+        "d2_precond": (ids + (g["H9"], g["C"]), {}),
+        "apply_a_raw": (ids + (g["v"], g["H9"]), {}),
+        "apply_b_raw": (ids + (g["u"], g["C"]), {}),
+    }
+
+
+def test_gba_wrappers_route_cpu_tensors_to_plain_versions():
+    g = _gba_inputs("cpu")
+    for name, (args, kw) in _gba_calls(g).items():
+        fn, ref = getattr(schur_cuda, name), getattr(schur_cuda, name + "_ref")
+        n = fn.launches
+        out, want = fn(*args, TP=g["tp"].TP, **kw), ref(*args, TP=g["tp"].TP, **kw)
+        for a, b in zip(out if isinstance(out, tuple) else (out,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(a, b), name
+        assert fn.launches == n, name
+
+
+@pytest.mark.parametrize("bad", ["camid_int64", "W18_strided", "H9_shape", "TP"])
+def test_gba_wrappers_reject_malformed_input(bad):
+    g = _gba_inputs("cpu", C=8, L=40, O=300)
+    tp = g["tp"]
+    camid, W18, H9, TP = tp.camid, g["W18"], g["H9"], tp.TP
+    if bad == "camid_int64":
+        camid = camid.long()
+    elif bad == "W18_strided":
+        W18 = torch.cat([W18, W18], 1)[:, ::2]
+    elif bad == "H9_shape":
+        H9 = H9[:, :-1].contiguous()
+    else:
+        TP = TP + 1
+    with pytest.raises((TypeError, ValueError)):
+        schur_cuda.s_apply(camid, tp.lmloc, W18, g["v"], H9, TP=TP)
+
+
+def _relmax(a, b):
+    return float((a - b).abs().max() / (b.abs().max() + 1e-6))
+
+
+@pytest.mark.cuda
+def test_gba_kernels_match_plain_versions_on_card(cuda_device):
+    g = _gba_inputs(cuda_device)
+    TP = g["tp"].TP
+    for name, (args, kw) in _gba_calls(g).items():
+        fn, ref = getattr(schur_cuda, name), getattr(schur_cuda, name + "_ref")
+        n = fn.launches
+        out = fn(*args, TP=TP, **kw)
+        torch.cuda.synchronize()
+        assert fn.launches == n + 1, name
+        want = ref(*args, TP=TP, **kw)
+        if name != "d1_assemble":
+            assert _relmax(out, want) < 1e-4, name
+            continue
+        W18, aux, hllbl, cam27 = out
+        rW, raux, rh, rc = want
+        assert _relmax(W18, rW) < 1e-4
+        assert _relmax(aux[0], raux[0]) < 1e-3 and _relmax(aux[2], raux[2]) < 1e-3
+        assert (aux[1] != raux[1]).float().mean() < 1e-3
+        assert _relmax(hllbl[:9], rh[:9]) < 1e-4 and _relmax(hllbl[9:], rh[9:]) < 1e-3
+        assert _relmax(cam27[:, :21], rc[:, :21]) < 1e-4
+        assert _relmax(cam27[:, 21:], rc[:, 21:]) < 1e-3
