@@ -32,8 +32,36 @@ The server's tile-stream GBA at the operating point of bench.py:bench_gba
     then 10 iterations), each of K3-K7 alone against its plain version, its
     bound and a library call, and a torch.profiler split of one iteration.
 
-Prints a JSON line of step results, one of GBA results, one of kernel
-results, the card's name and power limit and, last, the contract line
+The dual-layout matrix-free GBA on the same problem (entry.
+matrix_free_gba_entry; its plan has the tile plan's 2,162,688 slots):
+
+11. K9 (expand_sorted_streams) against its plain version, bitwise; the
+    plan-form apply_a, apply_b and schur_apply within 1e-4 of each output's
+    max-abs; K8 (d0_cost) within 1e-5 relative of its plain version and of
+    the sum of K3's per-slot cost on the same state;
+12. 10 LM iterations from phase 9's perturbed start with the kernels and
+    with their plain versions, each priced by K8: both lower the robust
+    cost and land within phase 9's bounds of each other and of the tile
+    GBA's result; launches K9 = apply_a = apply_b = 10, schur_apply >= 10
+    (one a PCG sweep); LM iterations/s on bench_gba's problem with the PCG
+    sweep count; each of K8, K9 and the plan-form products alone against
+    its plain version, its bound and a library call; a profiler split.
+
+The Motion-Check-gated GBA driver (entry.server_gba_entry) on a server map
+at capacity (2048 keyframes x 1024 features, 65,536 landmarks, 4 clients):
+
+13. the driver picks the tile-stream GBA; (a) an honest 20-iteration GBA
+    in chunks of 5 is neither reverted nor deletes a keyframe; (b) a GBA
+    that kicks a band of 64 of client 0's keyframes 1 m sideways is
+    reverted (or deletes >= 3 keyframes) by Motion Check, keeping client
+    0's ATE below 0.1x its ATE without Motion Check, which exceeds 0.3 m;
+    (c) (b) with the matrix-free GBA as the driver's solver. Each case's
+    seconds split into solver (and its host-built plan), Motion Check and
+    the rest of the driver.
+
+Prints a JSON line of step results, one of GBA results, one each of the
+matrix-free GBA's and the driver's results, one of kernel results, the
+card's name and power limit and, last, the contract line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a GPU it exits non-zero before printing any result.
 
@@ -76,6 +104,11 @@ SOURCE = {
     "d2_precond": f"{PKG}/csrc/schur.cu",
     "apply_a_raw": f"{PKG}/csrc/schur.cu",
     "apply_b_raw": f"{PKG}/csrc/schur.cu",
+    "d0_cost": f"{PKG}/csrc/schur.cu",
+    "expand_sorted_streams": f"{PKG}/csrc/schur.cu",
+    "apply_a": f"{PKG}/csrc/schur.cu",
+    "apply_b": f"{PKG}/csrc/schur.cu",
+    "schur_apply": f"{PKG}/csrc/schur.cu",
 }
 REPLACES = {
     "masked_corner_score": "motioncheck_ccm_slam_tpu/ops/fast_pallas.py:297",
@@ -85,12 +118,27 @@ REPLACES = {
     "d2_precond": "motioncheck_ccm_slam_tpu/ops/schur_pallas.py:919",
     "apply_a_raw": "motioncheck_ccm_slam_tpu/ops/schur_pallas.py:990",
     "apply_b_raw": "motioncheck_ccm_slam_tpu/ops/schur_pallas.py:1012",
+    "d0_cost": "motioncheck_ccm_slam_tpu/ops/schur_pallas.py:937",
+    "expand_sorted_streams": "motioncheck_ccm_slam_tpu/ops/schur_pallas.py:344",
+    "apply_a": "motioncheck_ccm_slam_tpu/ops/schur_pallas.py:377",
+    "apply_b": "motioncheck_ccm_slam_tpu/ops/schur_pallas.py:408",
+    "schur_apply": "motioncheck_ccm_slam_tpu/ops/schur_pallas.py:423",
 }
 GBA_KERNELS = ("d1_assemble", "s_apply", "d2_precond", "apply_a_raw", "apply_b_raw")
+# the matrix-free GBA's kernels (K8 prices its states; it is on no solver path)
+MF_KERNELS = ("expand_sorted_streams", "apply_a", "apply_b", "schur_apply")
 # each wrapper's __global__ function in csrc/schur.cu, as the profiler names it
 KERNEL_SYMBOL = {"d1_assemble": "d1_assemble_kernel", "s_apply": "s_apply_kernel",
                  "d2_precond": "d2_precond_kernel", "apply_a_raw": "apply_a_kernel",
                  "apply_b_raw": "apply_b_kernel"}
+# the matrix-free GBA's kernels by CUDA name: apply_a_kernel (K6) runs for
+# apply_a and for each schur_apply, apply_b_kernel (K7) for apply_b and each
+# schur_apply
+MF_SYMBOL = {"K9": "expand_streams_kernel", "K6": "apply_a_kernel", "K7": "apply_b_kernel"}
+# the driver phase: a band of client 0's keyframes kicked sideways by a
+# corrupted GBA, and the outcome bounds of tests/test_mc_gating.py
+KICK_SLOTS = range(200, 264)
+MC_ATE_RATIO, NO_MC_MIN_ATE_M = 0.1, 0.3
 
 
 def check(cond, msg: str) -> None:
@@ -188,9 +236,34 @@ def build_map(feats, scene, cfg, device):
     return mp, n
 
 
+_SLEEP_CYCLES_PER_MS = []
+
+
+def _sleep_cycles_per_ms() -> float:
+    """Cycles of ``torch.cuda._sleep`` per device millisecond, timed once."""
+    if not _SLEEP_CYCLES_PER_MS:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1000)
+        start.record()
+        torch.cuda._sleep(10_000_000)
+        end.record()
+        torch.cuda.synchronize()
+        _SLEEP_CYCLES_PER_MS.append(10_000_000 / start.elapsed_time(end))
+    return _SLEEP_CYCLES_PER_MS[0]
+
+
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of fn() over reps, by CUDA events."""
+    """Mean device milliseconds of fn() over reps, by CUDA events. The
+    device first sleeps for a little longer than the host took over one
+    call, reps times, so that the host queues the calls before the start
+    event runs: the events then time the device's work, not the host's
+    launches (which outlast short kernels)."""
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_ms_one = (time.perf_counter() - t0) * 1e3
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(1.2 * reps * host_ms_one + 1.0, 2000.0) * _sleep_cycles_per_ms()))
     start.record()
     for _ in range(reps):
         fn()
@@ -250,14 +323,15 @@ def turns_ms(kern, plain, k_reps: int, p_reps: int):
 
 
 @contextlib.contextmanager
-def plain_gba_kernels():
-    """Route the GBA's K3-K7 calls to their plain versions (on CUDA
-    tensors), for the GBA run without the kernels. Yields name -> number
-    of plain-version calls in the block (for s_apply: the PCG sweeps)."""
+def plain_gba_kernels(names=GBA_KERNELS):
+    """Route the named schur_cuda wrappers (K3-K7 by default) to their plain
+    versions (on CUDA tensors), for a GBA run without the kernels. Yields
+    name -> number of plain-version calls in the block (for s_apply and
+    schur_apply: the PCG sweeps)."""
     from motioncheck_ccm_slam_tpu_torch.ops import schur_cuda
 
-    saved = {n: getattr(schur_cuda, n) for n in GBA_KERNELS}
-    calls = dict.fromkeys(GBA_KERNELS, 0)
+    saved = {n: getattr(schur_cuda, n) for n in names}
+    calls = dict.fromkeys(names, 0)
 
     def counted(n):
         ref = getattr(schur_cuda, n + "_ref")
@@ -267,13 +341,26 @@ def plain_gba_kernels():
             return ref(*a, **kw)
         return call
 
-    for n in GBA_KERNELS:
+    for n in names:
         setattr(schur_cuda, n, counted(n))
     try:
         yield calls
     finally:
         for n, f in saved.items():
             setattr(schur_cuda, n, f)
+
+
+def zero_launches(names) -> None:
+    from motioncheck_ccm_slam_tpu_torch.ops import schur_cuda
+
+    for n in names:
+        getattr(schur_cuda, n).launches = 0
+
+
+def read_launches(names) -> dict:
+    from motioncheck_ccm_slam_tpu_torch.ops import schur_cuda
+
+    return {n: getattr(schur_cuda, n).launches for n in names}
 
 
 def k2_library_weight(device):
@@ -307,11 +394,13 @@ def perturbed_state(Tcw, Xw, seed: int = 1):
     return Tp.contiguous(), Xw + torch.from_numpy(dX).to(Xw.device)
 
 
-def profile_call(fn, args, n_iterations: int) -> dict:
+def profile_call(fn, args, n_iterations: int, symbols=KERNEL_SYMBOL,
+                 sweep_kernel: str = "s_apply") -> dict:
     """A torch.profiler split of one GBA call of n_iterations LM iterations:
-    device ms and launches per kernel (s_apply's launches are the call's
-    PCG sweeps), the rest of the device time, the host's scalar reads (the
-    PCG exit tests), the wall time under the profiler and the device's idle
+    device ms and launches per kernel (``symbols`` maps a name to the CUDA
+    function's; ``sweep_kernel``'s launches are reported as the call's PCG
+    sweeps), the rest of the device time, the host's scalar reads (the PCG
+    exit tests), the wall time under the profiler and the device's idle
     share of that wall time. The profiler's tracing adds host time, so this
     idle share is an upper bound on an unprofiled call's."""
     from torch.profiler import ProfilerActivity, profile
@@ -322,15 +411,15 @@ def profile_call(fn, args, n_iterations: int) -> dict:
         fn(*args, n_iterations=n_iterations)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    split = {n: 0.0 for n in GBA_KERNELS}
-    launches = {n: 0 for n in GBA_KERNELS}
+    split = {n: 0.0 for n in symbols}
+    launches = {n: 0 for n in symbols}
     dev_ms, n_sync, sync_ms, n_dev = 0.0, 0, 0.0, 0
     for e in prof.events():
         ms = e.time_range.elapsed_us() / 1e3
         if e.device_type == torch.autograd.DeviceType.CUDA:
             dev_ms += ms
             n_dev += 1
-            for n, sym in KERNEL_SYMBOL.items():
+            for n, sym in symbols.items():
                 if sym in e.name:
                     split[n] += ms
                     launches[n] += 1
@@ -339,7 +428,8 @@ def profile_call(fn, args, n_iterations: int) -> dict:
             sync_ms += ms
     return {"wall_ms_under_profiler": wall_ms, "device_busy_ms": dev_ms,
             "device_idle_share_under_profiler": 1.0 - dev_ms / wall_ms,
-            "k4_sweeps": launches["s_apply"], "device_ops": n_dev, "kernel_ms": split, "kernel_launches": launches,
+            "sweep_kernel_launches": launches[sweep_kernel], "device_ops": n_dev,
+            "kernel_ms": split, "kernel_launches": launches,
             "other_device_ms": dev_ms - sum(split.values()),
             "host_scalar_reads": n_sync, "host_scalar_read_ms": sync_ms}
 
@@ -379,7 +469,7 @@ def gba_phases(device, smi: str, schur_log: str) -> dict:
     Xp_pad = torch.cat([Xw_p, torch.zeros((tp.L_pad - L, 3), device=device)])
     st = sba.tile_streams(tp, obs, K, fixed_cam, fl_pad)
     d1_args = (tp.camid, tp.lmloc, st.uv, st.is2, st.valid, st.free, st.kp,
-               sba._pose_table(Tcw_p), Xp_pad)
+               schur_cuda.pose_table(Tcw_p), Xp_pad)
     out = schur_cuda.d1_assemble(*d1_args, TP=TP)
     ref = schur_cuda.d1_assemble_ref(*d1_args, TP=TP)
     torch.cuda.synchronize()
@@ -434,13 +524,12 @@ def gba_phases(device, smi: str, schur_log: str) -> dict:
     cost0 = robust_cost(Tcw_p, Xw_p)
     fn(Tcw_p, Xw_p, obs, K, fixed_cam, fixed_lm, n_iterations=0)   # builds fn's plan
     torch.cuda.synchronize()
-    for n in GBA_KERNELS:
-        getattr(schur_cuda, n).launches = 0
+    zero_launches(GBA_KERNELS)
     t0 = time.perf_counter()
     res_k = fn(Tcw_p, Xw_p, obs, K, fixed_cam, fixed_lm, n_iterations=GBA_ITERS)
     torch.cuda.synchronize()
     t_k = time.perf_counter() - t0
-    launches = {n: getattr(schur_cuda, n).launches for n in GBA_KERNELS}
+    launches = read_launches(GBA_KERNELS)
     t0 = time.perf_counter()
     with plain_gba_kernels() as plain_calls:
         res_p = fn(Tcw_p, Xw_p, obs, K, fixed_cam, fixed_lm, n_iterations=GBA_ITERS)
@@ -498,7 +587,7 @@ def gba_phases(device, smi: str, schur_log: str) -> dict:
 
     # each kernel alone at these shapes (bench state): ms, plain ms, bound
     X0 = torch.cat([Xw, torch.zeros((tp.L_pad - L, 3), device=device)])
-    d1_0 = d1_args[:7] + (sba._pose_table(Tcw), X0)
+    d1_0 = d1_args[:7] + (schur_cuda.pose_table(Tcw), X0)
     W0 = schur_cuda.d1_assemble(*d1_0, TP=TP)[0]
     ids0 = (tp.camid, tp.lmloc, W0)
     timed = {"d1_assemble": d1_0}
@@ -510,8 +599,12 @@ def gba_phases(device, smi: str, schur_log: str) -> dict:
     # W 73, Hll + bl 60, Hcc + bc 135) and ~150 elsewhere (no sums); K4 72
     # (A's stage 36, B's 36) on a slot with a non-zero W row, plus 15 a
     # landmark solve; K5 216; K6 and K7 36
+    # K3 reads ids, uv, is2, valid and the free flag of a valid slot (28 B)
+    # and only valid of a pad or invalid slot, and writes W and aux (84 B)
+    # for every slot
     work = {   # name -> (bytes read once + written once, f32 operations)
-        "d1_assemble": (OP * (28 + 72 + 12) + C * (12 + 27) * f + Lp * (3 + 12) * f + 16,
+        "d1_assemble": (n_active * 28 + (OP - n_active) * 4 + OP * (72 + 12)
+                        + C * (12 + 27) * f + Lp * (3 + 12) * f + 16,
                         n_active * 350 + (OP - n_active) * 150),
         "s_apply": (slot_in + C * 12 * f + Lp * 9 * f, n_w * 72 + Lp * 15),
         "d2_precond": (slot_in + C * 21 * f + Lp * 9 * f, n_w * 216),
@@ -558,7 +651,335 @@ def gba_phases(device, smi: str, schur_log: str) -> dict:
               f": {json.dumps(line)}")
         gba[f"profile_{label}"] = line
     print(json.dumps({"gba": gba}))
+    ctx = dict(tp=tp, st=st, Tcw_p=Tcw_p, Xw_p=Xw_p, res_k=res_k, W18=W18,
+               aux=aux, H9=H9, v=v, u=u, W0=W0, n_w=n_w, n_active=n_active,
+               k7_library_ms=records["apply_b_raw"]["library_ms"], work=work)
+    return records, ctx
+
+
+def mf_phases(device, smi: str, ctx: dict) -> dict:
+    """Phases 11-12: the matrix-free GBA's kernels and solver at bench_gba's
+    shapes. Returns name -> kernel record for K8, K9 and the plan-form
+    products."""
+    from motioncheck_ccm_slam_tpu_torch.entry import matrix_free_gba_entry
+    from motioncheck_ccm_slam_tpu_torch.ops import schur_cuda
+    from motioncheck_ccm_slam_tpu_torch.parallel import sharded_ba as sba
+
+    fn, (Tcw, Xw, obs, K, fixed_cam, fixed_lm) = matrix_free_gba_entry(device)
+    C, L = Tcw.shape[0], Xw.shape[0]
+    tp, st, TP = ctx["tp"], ctx["st"], ctx["tp"].TP
+    Tcw_p, Xw_p = ctx["Tcw_p"], ctx["Xw_p"]
+    t0 = time.perf_counter()
+    mp = sba.build_matrix_free_plan(obs, C, L)
+    t_plan = time.perf_counter() - t0
+    sp = mp.sp
+    OP = sp.ntl * sp.TP
+    print(f"phase 11 matrix-free plan: OP={OP} TP={sp.TP} seg={mp.seg}, {t_plan:.2f} s on the host")
+    check((sp.TP, sp.ntl) == (tp.TP, tp.ntl) and torch.equal(sp.camid, tp.camid)
+          and torch.equal(sp.lmloc, tp.lmloc), "the matrix-free plan differs from the tile plan")
+
+    # phase 11: K9 bitwise, the plan-form products, K8
+    max_abs = {}
+    out = schur_cuda.expand_sorted_streams(sp, Tcw_p, Xw_p)
+    ref = schur_cuda.expand_sorted_streams_ref(sp, Tcw_p, Xw_p)
+    torch.cuda.synchronize()
+    max_abs["expand_sorted_streams"] = max(float((a - b).abs().max()) for a, b in zip(out, ref))
+    check(all(torch.equal(a, b) for a, b in zip(out, ref)),
+          f"K9 differs from its plain version by {max_abs['expand_sorted_streams']:.3g}")
+    print("phase 11 K9 expand_sorted_streams: bitwise equal to its plain version")
+    del out, ref
+    W18, H9, v, u = ctx["W18"], ctx["H9"], ctx["v"], ctx["u"]
+    calls = {"apply_a": (W18, v, H9), "apply_b": (W18, u, C), "schur_apply": (W18, v, H9)}
+    for name, rest in calls.items():
+        o = getattr(schur_cuda, name)(sp, *rest)
+        r = getattr(schur_cuda, name + "_ref")(sp, *rest)
+        torch.cuda.synchronize()
+        e = relmax(o, r)
+        max_abs[name] = float((o - r).abs().max())
+        check(bool(o.isfinite().all()) and e <= SUM_RTOL,
+              f"{name} off its plain version by {e:.3g} > {SUM_RTOL}")
+        print(f"phase 11 {name} vs plain: {e:.3g} of max-abs (max |d| {max_abs[name]:.3g})")
+    L_pad = tp.L_pad
+
+    def d0_args(T, X):
+        Xpad = torch.cat([X, torch.zeros((L_pad - L, 3), device=device)])
+        return (tp.camid, tp.lmloc, st.uv, st.is2, st.valid, st.kp, schur_cuda.pose_table(T), Xpad)
+
+    def k8(T, X) -> float:
+        return float(schur_cuda.d0_cost(*d0_args(T, X), TP=TP))
+
+    a_p = d0_args(Tcw_p, Xw_p)
+    c8, c8_ref = k8(Tcw_p, Xw_p), float(schur_cuda.d0_cost_ref(*a_p, TP=TP))
+    c3 = float(torch.sum(ctx["aux"][0]))
+    max_abs["d0_cost"] = abs(c8 - c8_ref)
+    for name, b in (("its plain version", c8_ref), ("the sum of K3's per-slot cost", c3)):
+        check(np.isfinite(c8) and abs(c8 - b) <= 1e-5 * abs(b),
+              f"K8 cost {c8:.9g} vs {b:.9g} ({name})")
+    print(f"phase 11 K8 d0_cost: {c8:.9g} vs plain {c8_ref:.9g} and K3's sum {c3:.9g}")
+
+    # phase 12: 10 LM iterations from the perturbed start, priced by K8
+    fn(Tcw_p, Xw_p, obs, K, fixed_cam, fixed_lm, n_iterations=0)   # builds fn's plan
+    torch.cuda.synchronize()
+    names = MF_KERNELS + ("d0_cost",)
+    zero_launches(names)
+    cost0 = k8(Tcw_p, Xw_p)
+    t0 = time.perf_counter()
+    res_m = fn(Tcw_p, Xw_p, obs, K, fixed_cam, fixed_lm, n_iterations=GBA_ITERS)
+    torch.cuda.synchronize()
+    t_m = time.perf_counter() - t0
+    cost_m = k8(res_m.Tcw, res_m.Xw)
+    launches = read_launches(names)
+    t0 = time.perf_counter()
+    with plain_gba_kernels(MF_KERNELS) as plain_calls:
+        res_p = fn(Tcw_p, Xw_p, obs, K, fixed_cam, fixed_lm, n_iterations=GBA_ITERS)
+        torch.cuda.synchronize()
+    t_p = time.perf_counter() - t0
+    res_k = ctx["res_k"]
+    cost_p, cost_k = k8(res_p.Tcw, res_p.Xw), k8(res_k.Tcw, res_k.Xw)
+    mf = {
+        "robust_cost_start_k8": cost0, "robust_cost_kernels_k8": cost_m,
+        "robust_cost_plain_k8": cost_p, "robust_cost_tile_gba_k8": cost_k,
+        "inlier_cost_kernels": float(res_m.cost), "inlier_cost_plain": float(res_p.cost),
+        "Tcw_max_diff_plain": float((res_m.Tcw - res_p.Tcw).abs().max()),
+        "Xw_max_diff_plain": float((res_m.Xw - res_p.Xw).abs().max()),
+        "Tcw_max_diff_tile_gba": float((res_m.Tcw - res_k.Tcw).abs().max()),
+        "Xw_max_diff_tile_gba": float((res_m.Xw - res_k.Xw).abs().max()),
+        "gba_iters_per_s_perturbed_start": GBA_ITERS / t_m,
+        "pcg_sweeps_perturbed_start": launches["schur_apply"],
+        "gba_iters_per_s_perturbed_start_plain": GBA_ITERS / t_p,
+        "pcg_sweeps_perturbed_start_plain": plain_calls["schur_apply"],
+        "launches": launches,
+    }
+    print(f"phase 12 matrix-free GBA, {GBA_ITERS} LM iterations from the perturbed start: "
+          f"K8 cost {cost0:.6g} -> {cost_m:.6g} (kernels, {t_m:.2f} s, "
+          f"{launches['schur_apply']} PCG sweeps), {cost_p:.6g} (plain, {t_p:.2f} s, "
+          f"{plain_calls['schur_apply']} sweeps), tile GBA {cost_k:.6g}; |dTcw| plain "
+          f"{mf['Tcw_max_diff_plain']:.3g} tile {mf['Tcw_max_diff_tile_gba']:.3g}, |dXw| plain "
+          f"{mf['Xw_max_diff_plain']:.3g} tile {mf['Xw_max_diff_tile_gba']:.3g}; launches {launches}")
+    for label, c in (("kernels", cost_m), ("plain", cost_p)):
+        check(np.isfinite(c) and c < cost0, f"the matrix-free GBA ({label}) did not lower the cost")
+    for label, b in (("plain", cost_p), ("tile GBA", cost_k)):
+        check(abs(cost_m - b) <= GBA_BOUNDS["cost_rtol"] * max(abs(b), 1.0),
+              f"matrix-free cost {cost_m:.6g} vs {b:.6g} ({label})")
+    for key in ("plain", "tile_gba"):
+        check(mf[f"Tcw_max_diff_{key}"] < GBA_BOUNDS["Tcw_atol"], f"Tcw differs from the {key} run")
+        check(mf[f"Xw_max_diff_{key}"] < GBA_BOUNDS["Xw_atol"], f"Xw differs from the {key} run")
+    want = {"expand_sorted_streams": GBA_ITERS, "apply_a": GBA_ITERS, "apply_b": GBA_ITERS,
+            "d0_cost": 2}
+    for n, k in want.items():
+        check(launches[n] == k, f"{n} launched {launches[n]} times, expected {k}")
+    check(launches["schur_apply"] >= GBA_ITERS, f"schur_apply launched {launches['schur_apply']} times")
+    del res_p
+
+    # LM iterations/s on bench_gba's exact problem
+    args = (Tcw, Xw, obs, K, fixed_cam, fixed_lm)
+    float(fn(*args, n_iterations=1).cost)
+    n0 = schur_cuda.schur_apply.launches
+    t0 = time.perf_counter()
+    res = fn(*args, n_iterations=GBA_ITERS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    sweeps = schur_cuda.schur_apply.launches - n0
+    check(bool(res.Tcw.isfinite().all()) and np.isfinite(float(res.cost)),
+          "non-finite matrix-free GBA result on bench_gba's problem")
+    mf["gba_iters_per_s_2048kf_2Mobs"] = GBA_ITERS / dt
+    mf["pcg_sweeps_2048kf_2Mobs"] = sweeps
+    mf["card"] = smi
+    print(f"phase 12 matrix-free gba_iters_per_s_2048kf_2Mobs {GBA_ITERS / dt:.4f} "
+          f"({dt:.3f} s for {GBA_ITERS} LM iterations, {sweeps} PCG sweeps, on {smi})")
+
+    # each kernel alone at these shapes (bench state)
+    W0, a_bench = ctx["W0"], d0_args(Tcw, Xw)
+    timed = {
+        "d0_cost": (lambda: schur_cuda.d0_cost(*a_bench, TP=TP),
+                    lambda: schur_cuda.d0_cost_ref(*a_bench, TP=TP)),
+        "expand_sorted_streams": (lambda: schur_cuda.expand_sorted_streams(sp, Tcw, Xw),
+                                  lambda: schur_cuda.expand_sorted_streams_ref(sp, Tcw, Xw)),
+        "apply_a": (lambda: schur_cuda.apply_a(sp, W0, v, H9),
+                    lambda: schur_cuda.apply_a_ref(sp, W0, v, H9)),
+        "apply_b": (lambda: schur_cuda.apply_b(sp, W0, u, C),
+                    lambda: schur_cuda.apply_b_ref(sp, W0, u, C)),
+        "schur_apply": (lambda: schur_cuda.schur_apply(sp, W0, v, H9),
+                        lambda: schur_cuda.schur_apply_ref(sp, W0, v, H9)),
+    }
+    f, n_w, work, n_act = 4, ctx["n_w"], ctx["work"], ctx["n_active"]
+    # K8 reads ids, uv, is2 and valid of a valid slot (24 B) and only valid
+    # (4 B) of a pad or invalid slot, whose cost is 0; the pose table and the
+    # L points, and does ~45 f32 operations a valid slot (projection,
+    # residual, Huber cost, sum); K9 reads 8 B of ids and writes 60 B a
+    # slot; the plan-form products do K6's, K7's and K4's work
+    bounds = {
+        "d0_cost": bound_ms(n_act * 24 + (OP - n_act) * 4 + C * 12 * f + L * 3 * f + f,
+                            n_act * 45),
+        "expand_sorted_streams": bound_ms(OP * (8 + 15 * f) + C * 12 * f + L * 3 * f, 0),
+        "apply_a": bound_ms(*work["apply_a_raw"]),
+        "apply_b": bound_ms(*work["apply_b_raw"]),
+        "schur_apply": bound_ms(*work["s_apply"]),
+    }
+    records = {}
+    for name, (kern, plain) in timed.items():
+        k_ms, p_ms = turns_ms(kern, plain, 20, 3)
+        b_ms, b_by = bounds[name]
+        records[name] = {"launches": launches[name], "max_abs_err": max_abs[name], "ms": k_ms,
+                         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                         "library_ms": None}
+        print(f"phase 12 {name}: {k_ms:.4f} ms vs plain {p_ms:.4f} ms; bound {b_ms:.4f} ms "
+              f"({b_by}), {100 * b_ms / k_ms:.1f}% of it")
+    # yardsticks: K9 against one indexing gather of each table; apply_b is
+    # K7's function on K7's inputs, so it shares K7's CSR product time
+    tab, cam_l, lm_l = schur_cuda.pose_table(Tcw), sp.camid.long(), mp.lm_p
+    records["expand_sorted_streams"]["library_ms"] = cuda_ms(lambda: (tab[cam_l], Xw[lm_l]), 20)
+    records["apply_b"]["library_ms"] = ctx["k7_library_ms"]
+    print(f"phase 12 expand_sorted_streams library call (two indexing gathers): "
+          f"{records['expand_sorted_streams']['library_ms']:.4f} ms")
+
+    profile_call(fn, args, 1, MF_SYMBOL, "K6")
+    line = profile_call(fn, args, GBA_ITERS, MF_SYMBOL, "K6")
+    line["pcg_sweeps"] = line["kernel_launches"]["K6"] - GBA_ITERS
+    print(f"phase 12 profile of {GBA_ITERS} matrix-free LM iterations from the bench state: "
+          f"{json.dumps(line)}")
+    mf["profile_bench_state"] = line
+    print(json.dumps({"matrix_free_gba": mf}))
     return records
+
+
+@contextlib.contextmanager
+def timed_driver():
+    """Time the GBA driver's parts: wraps ``_pick_solver``'s choice and any
+    solver handed to it, the solvers' host-built plans (part of the solver's
+    time) and Motion Check's two calls, each ending in a device synchronize.
+    Yields a dict of seconds: solver, plan, mc; and ``timed(part, f)``."""
+    from motioncheck_ccm_slam_tpu_torch.models import gba as gba_mod
+    from motioncheck_ccm_slam_tpu_torch.models import motion_check as mc
+    from motioncheck_ccm_slam_tpu_torch.parallel import sharded_ba as sba
+
+    secs = {"solver": 0.0, "plan": 0.0, "mc": 0.0}
+
+    def timed(part, f):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = f(*a, **kw)
+            torch.cuda.synchronize()
+            secs[part] += time.perf_counter() - t0
+            return out
+        return call
+
+    saved = (gba_mod._pick_solver, mc.check_after_gba, mc.apply_verdict,
+             sba.build_tile_plan, sba.build_matrix_free_plan)
+
+    def pick(*a, **kw):
+        solver = saved[0](*a, **kw)
+        return solver if solver is None else timed("solver", solver)
+
+    gba_mod._pick_solver = pick
+    mc.check_after_gba = timed("mc", saved[1])
+    mc.apply_verdict = timed("mc", saved[2])
+    sba.build_tile_plan = timed("plan", saved[3])
+    sba.build_matrix_free_plan = timed("plan", saved[4])
+    secs["timed"] = timed
+    try:
+        yield secs
+    finally:
+        (gba_mod._pick_solver, mc.check_after_gba, mc.apply_verdict,
+         sba.build_tile_plan, sba.build_matrix_free_plan) = saved
+
+
+def client_ate(m, truth: np.ndarray, slots: np.ndarray) -> float:
+    """RMS camera-centre error of the valid keyframes among ``slots``
+    against the true poses."""
+    idx = torch.from_numpy(slots).to(m.kf.Tcw.device)
+    T = m.kf.Tcw[idx].double()
+    est = -torch.einsum("kji,kj->ki", T[:, :3, :3], T[:, :3, 3])
+    Tt = torch.from_numpy(truth[slots]).to(T)
+    ref = -torch.einsum("kji,kj->ki", Tt[:, :3, :3], Tt[:, :3, 3])
+    ok = m.kf.valid[idx]
+    return float(torch.sqrt(((est - ref) ** 2).sum(1)[ok].mean()))
+
+
+def driver_phases(device, smi: str) -> dict:
+    """Phase 13: the Motion-Check-gated GBA driver on a server map at
+    capacity. Returns the driver's results."""
+    from motioncheck_ccm_slam_tpu_torch import entry
+    from motioncheck_ccm_slam_tpu_torch.models import gba as gba_mod
+    from motioncheck_ccm_slam_tpu_torch.parallel import sharded_ba as sba
+
+    t0 = time.perf_counter()
+    fn, (m, cfg) = entry.server_gba_entry(device, seed=0)
+    torch.cuda.synchronize()
+    t_map = time.perf_counter() - t0
+    scene = entry.server_scene(0)
+    truth = scene.Tcw
+    per = m.nk // entry.N_CLIENTS
+    client0, every = np.arange(per), np.arange(m.nk)
+    n_obs = int((scene.mp_idx >= 0).sum())
+    print(f"phase 13 server map: {m.nk} keyframes x {m.kf.xy.shape[1]} features, {m.nm} "
+          f"landmarks, {n_obs} observations, all valid; built in {t_map:.2f} s on the host")
+    check(bool(m.kf.valid.all()) and bool(m.mp.valid.all()), "the server map is not full")
+    chosen = gba_mod._pick_solver(m.nk, m.nm)
+    check(chosen is not None and chosen.__qualname__.startswith("make_tile_gba"),
+          f"_pick_solver chose {chosen} for the server map, not the tile-stream GBA")
+    iters, chunk = cfg.opt.gba_iterations, 5
+
+    def kicked(base):
+        """base, then client 0's keyframes in KICK_SLOTS kicked 1 m sideways,
+        alternately (as tests/test_mc_gating.corrupting_solver)."""
+        def solver(Tcw, Xw, obs, K, fixed_cam, fixed_lm, n_it=None):
+            res = base(Tcw, Xw, obs, K, fixed_cam, fixed_lm, n_it)
+            T = res.Tcw.clone()
+            for i, s in enumerate(KICK_SLOTS):
+                T[s, 1, 3] += 1.0 if i % 2 == 0 else -1.0
+            return res._replace(Tcw=T)
+        return solver
+
+    out = {"card": smi, "map_build_s": t_map}
+
+    def run(label, m, **kw):
+        zero_launches(GBA_KERNELS + MF_KERNELS)
+        with timed_driver() as secs:
+            if "sharded_solver" in kw:
+                kw["sharded_solver"] = secs["timed"]("solver", kw["sharded_solver"])
+            t0 = time.perf_counter()
+            res = fn(m, cfg, iterations=iters, chunk=chunk, **kw)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+        launches = {k: v for k, v in read_launches(GBA_KERNELS + MF_KERNELS).items() if v}
+        rec = {"reverted": res.reverted, "n_deleted_kfs": res.n_deleted_kfs,
+               "mc_longest_run": res.mc_longest_run, "solver_cost": res.cost,
+               "ate_client0_m": client_ate(m, truth, client0),
+               "ate_all_m": client_ate(m, truth, every),
+               "seconds": total, "solver_s": secs["solver"], "plan_s": secs["plan"],
+               "mc_s": secs["mc"], "other_s": total - secs["solver"] - secs["mc"],
+               "launches": launches}
+        out[label] = rec
+        print(f"phase 13 {label}: reverted {res.reverted}, deleted {res.n_deleted_kfs}, "
+              f"longest run {res.mc_longest_run}, client 0 ATE {rec['ate_client0_m']:.4g} m, "
+              f"all {rec['ate_all_m']:.4g} m; {total:.3f} s = solver {secs['solver']:.3f} "
+              f"(host plan {secs['plan']:.3f}) + MC {secs['mc']:.3f} + rest "
+              f"{rec['other_s']:.3f}; launches {launches}")
+        return res, rec
+
+    # (a) honest, through _pick_solver
+    res, rec = run("a_honest", m)
+    check(not res.reverted and res.n_deleted_kfs == 0,
+          f"Motion Check flagged the honest GBA: {res}")
+    check(rec["launches"].get("d1_assemble", 0) >= 1, "the driver did not run the tile GBA's K3")
+    # (b) and (c): a GBA that kicks a band of client 0's keyframes
+    for tag, base in (("b", chosen), ("c", sba.make_matrix_free_gba(pcg_iters=25))):
+        res_mc, rec_mc = run(f"{tag}_kicked_mc", entry.server_map(scene, device),
+                             sharded_solver=kicked(base))
+        res_no, rec_no = run(f"{tag}_kicked_no_mc", entry.server_map(scene, device),
+                             sharded_solver=kicked(base), enable_motion_check=False)
+        check(res_mc.reverted or res_mc.n_deleted_kfs >= 3,
+              f"({tag}) Motion Check neither reverted nor deleted: {res_mc}")
+        check(rec_no["ate_client0_m"] > NO_MC_MIN_ATE_M,
+              f"({tag}) the kick did not bite: ATE {rec_no['ate_client0_m']:.4g} m")
+        check(rec_mc["ate_client0_m"] < MC_ATE_RATIO * rec_no["ate_client0_m"],
+              f"({tag}) ATE with MC {rec_mc['ate_client0_m']:.4g} m vs "
+              f"{rec_no['ate_client0_m']:.4g} m without")
+    check(out["c_kicked_mc"]["launches"].get("schur_apply", 0) >= 1,
+          "the driver did not run the matrix-free GBA's kernels")
+    print(json.dumps({"driver": out}))
+    return out
 
 
 def main() -> None:
@@ -750,7 +1171,11 @@ def main() -> None:
             "library_ms": lib_k2 if name == "blur_and_moments" else None}
         print(f"phase 6 {name}: bound {b_ms:.4f} ms per frame ({b_by})")
 
-    records.update(gba_phases(device, smi, schur_log))
+    gba_records, ctx = gba_phases(device, smi, schur_log)
+    records.update(gba_records)
+    records.update(mf_phases(device, smi, ctx))
+    del ctx
+    driver_phases(device, smi)
 
     print(json.dumps({"step_ms": step_med["kernel"], "step_plain_ms": step_med["plain"],
                       "final_centre_error_m": errs[-1], "card": smi}))

@@ -6,12 +6,17 @@ to be held against. It imports ``torch`` and never ``jax``.
 
 - ``ops``      — Lie groups, projective geometry, image pyramid, ORB
                  extraction with the FAST kernels K1/K2 written in CUDA C++
-                 for Hopper (``ops/fast_cuda.py``, ``csrc/fast.cu``), and
-                 descriptor matching.
-- ``solvers``  — motion-only pose optimization.
-- ``models``   — the landmark block, frames and the tracking step.
-- ``convert``  — numpy <-> torch state conversion; ``entry`` — the
-                 flagship step as ``(fn, example_args)``.
+                 for Hopper (``ops/fast_cuda.py``, ``csrc/fast.cu``),
+                 descriptor matching, and the GBA kernels K3-K9
+                 (``ops/schur_cuda.py``, ``csrc/schur.cu``).
+- ``solvers``  — BA building blocks, motion-only pose optimization, the
+                 dense-W bundle adjustment.
+- ``parallel`` — the server GBA solvers on one device: tile-stream and
+                 dual-layout matrix-free.
+- ``models``   — the map state, frames, the tracking step, Motion Check and
+                 the Motion-Check-gated GBA driver.
+- ``convert``  — numpy <-> torch state conversion; ``entry`` — the main
+                 paths as ``(fn, example_args)``.
 
 Each kernel wrapper launches its kernel for a CUDA tensor and runs its
 plain torch version only for a CPU tensor (tests and CPU runs).

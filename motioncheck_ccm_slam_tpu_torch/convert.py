@@ -3,15 +3,16 @@
 Descriptors are (N, 8) uint32 words in numpy (and in the JAX package) and
 the same bits viewed as int32 in the port; integer index fields widen to
 int64 in the port where they index tensors. Any object with the right
-field names (a JAX ``MPBlock``/``OrbFeatures`` included) converts from
-numpy; ``*_to_numpy`` returns the port's NamedTuple holding numpy arrays.
+field names (a JAX ``MPBlock``/``KFBlock``/``OrbFeatures``/``MapState``
+included) converts from numpy; ``*_to_numpy`` returns the port's
+NamedTuple (or ``MapState``) holding numpy arrays.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .models.map_state import MPBlock
+from .models.map_state import KFBlock, MapState, MPBlock
 from .ops.orb import OrbFeatures
 from .solvers.ba_core import BAObservations
 
@@ -58,6 +59,50 @@ def mp_block_to_numpy(mp: MPBlock) -> MPBlock:
         k: desc_to_numpy(v) if k == "desc" else v.detach().cpu().numpy()
         for k, v in mp._asdict().items()
     })
+
+
+_KF_DTYPES = dict(
+    kf_id=torch.int32, client_id=torch.int32, unique_id=torch.int32,
+    timestamp=torch.float32, Tcw=torch.float32, xy=torch.float32, angle=torch.float32,
+    octave=torch.int32, feat_valid=torch.bool, mp_idx=torch.int32, parent=torch.int32,
+    pred=torch.int32, valid=torch.bool, loop_edge=torch.int32,
+    Tcw_pre_gba=torch.float32, tracking_tws=torch.float32,
+)
+
+
+def kf_block_from_numpy(kf, device) -> KFBlock:
+    fields = {k: _tensor(getattr(kf, k), dt, device) for k, dt in _KF_DTYPES.items()}
+    return KFBlock(desc=desc_from_numpy(np.asarray(kf.desc).reshape(-1, 8), device)
+                   .reshape(np.shape(kf.desc)), **fields)
+
+
+def kf_block_to_numpy(kf: KFBlock) -> KFBlock:
+    return KFBlock(**{
+        k: desc_to_numpy(v.reshape(-1, 8)).reshape(tuple(v.shape)) if k == "desc"
+        else v.detach().cpu().numpy()
+        for k, v in kf._asdict().items()
+    })
+
+
+_MAP_HOST_FIELDS = ("next_kf_slot", "next_mp_slot", "correct_kf_switch", "request_gba",
+                    "n_kf_growths", "n_mp_growths")
+
+
+def map_state_from_numpy(m, config, device) -> MapState:
+    """A map state (a JAX ``MapState`` included) -> the port's on
+    ``device``, with ``config`` (the port's ``Config``). The host index
+    and latches are copied."""
+    return MapState(kf=kf_block_from_numpy(m.kf, device), mp=mp_block_from_numpy(m.mp, device),
+                    config=config, kf_slot_by_id=dict(m.kf_slot_by_id),
+                    mp_slot_by_id=dict(m.mp_slot_by_id),
+                    **{k: getattr(m, k) for k in _MAP_HOST_FIELDS})
+
+
+def map_state_to_numpy(m: MapState) -> MapState:
+    """The port's map state with its blocks as numpy arrays."""
+    return MapState(kf=kf_block_to_numpy(m.kf), mp=mp_block_to_numpy(m.mp), config=m.config,
+                    kf_slot_by_id=dict(m.kf_slot_by_id), mp_slot_by_id=dict(m.mp_slot_by_id),
+                    **{k: getattr(m, k) for k in _MAP_HOST_FIELDS})
 
 
 def orb_features_from_numpy(feats, device) -> OrbFeatures:

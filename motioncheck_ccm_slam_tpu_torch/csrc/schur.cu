@@ -5,7 +5,12 @@
 // K4 mcs_s_apply replaces schur_pallas.py: s_apply (body _s_kernel).
 // K5 mcs_d2_precond replaces schur_pallas.py: d2_precond (body _d2_kernel).
 // K6 mcs_apply_a replaces schur_pallas.py: apply_a_raw (body _kernel_a).
-// K7 mcs_apply_b replaces schur_pallas.py: apply_b_raw (body _kernel_b).
+// K7 mcs_apply_b replaces schur_pallas.py: apply_b_raw (body _kernel_b);
+//    with K6 it also serves the plan-form apply_a, apply_b and schur_apply
+//    (schur_pallas.py:377, :408, :423, the same _kernel_a/_kernel_b bodies).
+// K8 mcs_d0_cost replaces schur_pallas.py: d0_cost (body _d0_kernel).
+// K9 mcs_expand_streams replaces schur_pallas.py: expand_sorted_streams
+//    (body _kernel_c).
 //
 // Layout. Observations lie in landmark-aligned tiles: tile t holds the
 // (padded) slots of landmarks [128t, 128t+128), TP slots a tile, OP = ntl*TP
@@ -28,8 +33,9 @@
 //
 // Bounds on this card: the least traffic streams per-slot data once (K3 reads
 // 28 and writes 84 bytes a slot, K4-K7 read the 72-byte W row plus 8 bytes of
-// ids) with 40-270 flops a slot, under the f32 ridge of ~20 flop/byte, so all
-// five are bounded by memory traffic. K4 as written reads each slot's W row
+// ids, K8 reads 24 bytes, K9 reads 8 and writes 60) with 0-350 flops a slot,
+// under the f32 ridge of ~20 flop/byte, so all seven are bounded by memory
+// traffic. K4 as written reads each slot's W row
 // and ids twice, once in each stage (a tile's W rows do not fit in shared
 // memory), so it cannot come closer than about twice its bound; the camera
 // atomics are the other risk of running far above it.
@@ -124,6 +130,52 @@ __device__ __forceinline__ void b_stage(const int* __restrict__ camid,
 }
 
 // ---------------------------------------------------------------------------
+// The per-slot projection stage, shared by K3 and K8.
+// ---------------------------------------------------------------------------
+
+// Camera row of the (C, 12) pose table: R row-major, then t.
+__device__ __forceinline__ void load_pose(const float* __restrict__ pose, int cam,
+                                          float (&R)[9], float (&t)[3]) {
+#pragma unroll
+  for (int q = 0; q < 9; ++q) R[q] = __ldg(pose + cam * 12 + q);
+#pragma unroll
+  for (int q = 0; q < 3; ++q) t[q] = __ldg(pose + cam * 12 + 9 + q);
+}
+
+struct Projection {
+  float pc0, pc1, pc2;  // camera-frame point
+  float iz;             // 1 / depth (1 for a point behind the camera)
+  float rx, ry;         // residual uv - projection
+  float chi2;           // weighted squared residual
+  float w;              // robust weight is2 * huber * valid * front
+  float rho;            // robust (Huber) cost, times valid
+  bool front;
+};
+
+// p_c = R X + t, the residual, chi2, the Huber weight and cost of one slot.
+// Depth guard as _project: a point at or behind the camera projects with
+// z = 1 and gets zero weight, so every value stays finite.
+__device__ __forceinline__ Projection project_slot(const float (&R)[9], const float (&t)[3],
+                                                   float X0, float X1, float X2, float u,
+                                                   float v, float is2s, float vs, float fx,
+                                                   float fy, float cx, float cy) {
+  Projection p;
+  p.pc0 = R[0] * X0 + R[1] * X1 + R[2] * X2 + t[0];
+  p.pc1 = R[3] * X0 + R[4] * X1 + R[5] * X2 + t[1];
+  p.pc2 = R[6] * X0 + R[7] * X1 + R[8] * X2 + t[2];
+  p.front = p.pc2 > 1e-6f;
+  p.iz = 1.0f / (p.front ? p.pc2 : 1.0f);
+  p.rx = u - (fx * p.pc0 * p.iz + cx);
+  p.ry = v - (fy * p.pc1 * p.iz + cy);
+  p.chi2 = (p.rx * p.rx + p.ry * p.ry) * is2s;
+  const float e = sqrtf(fmaxf(p.chi2, 1e-12f));
+  const bool core = e <= kHuberDelta;
+  p.w = is2s * (core ? 1.0f : kHuberDelta / e) * vs * (p.front ? 1.0f : 0.0f);
+  p.rho = (core ? p.chi2 : 2.0f * kHuberDelta * e - kHuberDelta * kHuberDelta) * vs;
+  return p;
+}
+
+// ---------------------------------------------------------------------------
 // K3: one linearisation pass.
 // ---------------------------------------------------------------------------
 
@@ -157,28 +209,15 @@ d1_assemble_kernel(const int* __restrict__ camid, const int* __restrict__ lmloc,
     const size_t s = base + k;
     const int cam = camid[s], l = lmloc[s];
     float R[9], t[3];
-#pragma unroll
-    for (int q = 0; q < 9; ++q) R[q] = __ldg(pose + cam * 12 + q);
-#pragma unroll
-    for (int q = 0; q < 3; ++q) t[q] = __ldg(pose + cam * 12 + 9 + q);
-    const float X0 = x_s[0][l], X1 = x_s[1][l], X2 = x_s[2][l];
-    const float pc0 = R[0] * X0 + R[1] * X1 + R[2] * X2 + t[0];
-    const float pc1 = R[3] * X0 + R[4] * X1 + R[5] * X2 + t[1];
-    const float pc2 = R[6] * X0 + R[7] * X1 + R[8] * X2 + t[2];
-    // depth guard as _project: a point at or behind the camera projects with
-    // z = 1 and gets zero weight, so every value below stays finite
-    const bool front = pc2 > 1e-6f;
-    const float iz = 1.0f / (front ? pc2 : 1.0f);
-    const float rx = uv[2 * s] - (fx * pc0 * iz + cx);
-    const float ry = uv[2 * s + 1] - (fy * pc1 * iz + cy);
-    const float is2s = is2[s], vs = valid[s];
-    const float chi2 = (rx * rx + ry * ry) * is2s;
-    const float e = sqrtf(fmaxf(chi2, 1e-12f));
-    const bool core = e <= kHuberDelta;
-    const float w = is2s * (core ? 1.0f : kHuberDelta / e) * vs * (front ? 1.0f : 0.0f);
-    aux[s] = (core ? chi2 : 2.0f * kHuberDelta * e - kHuberDelta * kHuberDelta) * vs;
-    aux[OP + s] = (vs != 0.0f && front && chi2 <= kChi2Gate) ? vs : 0.0f;
-    aux[2 * OP + s] = chi2;
+    load_pose(pose, cam, R, t);
+    const float vs = valid[s];
+    const Projection p = project_slot(R, t, x_s[0][l], x_s[1][l], x_s[2][l], uv[2 * s],
+                                      uv[2 * s + 1], is2[s], vs, fx, fy, cx, cy);
+    const float pc0 = p.pc0, pc1 = p.pc1, pc2 = p.pc2, iz = p.iz, rx = p.rx, ry = p.ry;
+    const float w = p.w;
+    aux[s] = p.rho;
+    aux[OP + s] = (vs != 0.0f && p.front && p.chi2 <= kChi2Gate) ? vs : 0.0f;
+    aux[2 * OP + s] = p.chi2;
 
     const float a00 = fx * iz, a02 = -fx * pc0 * iz * iz;
     const float a11 = fy * iz, a12 = -fy * pc1 * iz * iz;
@@ -328,6 +367,79 @@ apply_b_kernel(const int* __restrict__ camid, const int* __restrict__ lmloc,
   b_stage(camid, lmloc, W18, OP, TP, u_s, out);
 }
 
+// ---------------------------------------------------------------------------
+// K8: the robust cost of a state, one scalar.
+// ---------------------------------------------------------------------------
+
+// K3's per-slot stage reduced to sum rho: per-thread sums, a warp-shuffle and
+// shared-memory block reduction, and one atomicAdd a block into the zeroed
+// 0-d output. A slot with valid = 0 (a pad or an invalid observation) has
+// rho = 0 exactly and is skipped before any load of its pose.
+__global__ void __launch_bounds__(kThreads)
+d0_cost_kernel(const int* __restrict__ camid, const int* __restrict__ lmloc,
+               const float* __restrict__ uv, const float* __restrict__ is2,
+               const float* __restrict__ valid, const float* __restrict__ kp,
+               const float* __restrict__ pose, const float* __restrict__ X, int TP,
+               float* __restrict__ out) {
+  __shared__ float x_s[3][kLm];
+  __shared__ float warp_sum[kThreads / 32];
+  const size_t lm0 = static_cast<size_t>(blockIdx.x) * kLm;
+  for (int i = threadIdx.x; i < 3 * kLm; i += blockDim.x) {
+    const int l = i / 3, c = i % 3;
+    x_s[c][l] = X[(lm0 + l) * 3 + c];
+  }
+  __syncthreads();
+  const float fx = __ldg(kp), fy = __ldg(kp + 1), cx = __ldg(kp + 2), cy = __ldg(kp + 3);
+  const size_t base = static_cast<size_t>(blockIdx.x) * TP;
+  float acc = 0.0f;
+  for (int k = threadIdx.x; k < TP; k += blockDim.x) {
+    const size_t s = base + k;
+    const float vs = valid[s];
+    if (vs == 0.0f) continue;
+    const int cam = camid[s], l = lmloc[s];
+    float R[9], t[3];
+    load_pose(pose, cam, R, t);
+    acc += project_slot(R, t, x_s[0][l], x_s[1][l], x_s[2][l], uv[2 * s], uv[2 * s + 1],
+                        is2[s], vs, fx, fy, cx, cy).rho;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
+  if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5] = acc;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    acc = threadIdx.x < (blockDim.x >> 5) ? warp_sum[threadIdx.x] : 0.0f;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
+    if (threadIdx.x == 0) atomicAdd(out, acc);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K9: the matrix-free GBA's per-slot streams R, t, X.
+// ---------------------------------------------------------------------------
+
+// One thread a slot: the slot's camera row (12 floats) and landmark position
+// (3 floats) through the read-only cache, written as rows of the (15, OP)
+// output so that neighbouring threads write neighbouring addresses. Pad
+// slots (camera 0, tile-local landmark 0) read camera 0 and their tile's
+// first landmark, as the Pallas kernel does. No arithmetic: the output is
+// the inputs' bits.
+constexpr int kExpandThreads = 256;
+
+__global__ void __launch_bounds__(kExpandThreads)
+expand_streams_kernel(const int* __restrict__ camid, const int* __restrict__ lmloc,
+                      const float* __restrict__ pose, const float* __restrict__ X,
+                      int TP, size_t OP, float* __restrict__ out) {
+  const size_t s = static_cast<size_t>(blockIdx.x) * kExpandThreads + threadIdx.x;
+  if (s >= OP) return;
+  const int cam = camid[s];
+  const size_t lm = (s / TP) * kLm + lmloc[s];
+#pragma unroll
+  for (int q = 0; q < 12; ++q) out[q * OP + s] = __ldg(pose + cam * 12 + q);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) out[(12 + c) * OP + s] = __ldg(X + lm * 3 + c);
+}
+
 inline cudaStream_t as_stream(void* s) { return static_cast<cudaStream_t>(s); }
 
 }  // namespace
@@ -393,6 +505,28 @@ int mcs_apply_b(const int* camid, const int* lmloc, const float* W18,
   const size_t OP = static_cast<size_t>(ntl) * TP, L_pad = static_cast<size_t>(ntl) * kLm;
   apply_b_kernel<<<ntl, kThreads, 0, as_stream(stream)>>>(
       camid, lmloc, W18, u, TP, OP, L_pad, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Arguments of mcs_d1_assemble without free -> out (0-d, zeroed) += sum rho.
+int mcs_d0_cost(const int* camid, const int* lmloc, const float* uv, const float* is2,
+                const float* valid, const float* kp, const float* pose, const float* X,
+                int ntl, int TP, float* out, void* stream) {
+  if (ntl <= 0 || TP <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  d0_cost_kernel<<<ntl, kThreads, 0, as_stream(stream)>>>(
+      camid, lmloc, uv, is2, valid, kp, pose, X, TP, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// pose (C, 12); X (L, 3) with every slot's landmark < L -> out (15, OP):
+// rows 0-8 R row-major, 9-11 t, 12-14 X.
+int mcs_expand_streams(const int* camid, const int* lmloc, const float* pose,
+                       const float* X, int ntl, int TP, float* out, void* stream) {
+  if (ntl <= 0 || TP <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t OP = static_cast<size_t>(ntl) * TP;
+  const unsigned blocks = static_cast<unsigned>((OP + kExpandThreads - 1) / kExpandThreads);
+  expand_streams_kernel<<<blocks, kExpandThreads, 0, as_stream(stream)>>>(
+      camid, lmloc, pose, X, TP, OP, out);
   return static_cast<int>(cudaGetLastError());
 }
 

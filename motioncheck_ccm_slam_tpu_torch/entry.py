@@ -6,18 +6,26 @@
 - ``gba_entry``: the server's tile-stream GBA (K3-K7) at the operating
   point of ``bench.py:bench_gba``: 2048 keyframes, 65,536 landmarks,
   2,048,000 observations.
+- ``matrix_free_gba_entry``: the dual-layout matrix-free GBA (K9 and the
+  plan-form Schur products) on the same problem.
+- ``server_gba_entry``: the Motion-Check-gated GBA driver (``run_gba``) on
+  a server map at capacity: 4 clients x 512 keyframes x 1024 features,
+  65,536 landmarks.
 
-Both run on the card unless the caller asks for another device.
+All run on the card unless the caller asks for another device.
 """
 from __future__ import annotations
 
+import functools
 import types
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from . import convert
 from .config import DEFAULT_CONFIG
+from .models import gba, map_state
 from .models.tracking import _track_two_pass
 from .ops import geometry, orb
 from .parallel import sharded_ba
@@ -71,11 +79,10 @@ def entry(device="cuda"):
     return fn, example_args
 
 
-def gba_entry(device="cuda"):
-    """(fn, example_args) of the server GBA: ``fn`` is
-    ``make_tile_gba(pcg_iters=25)``; the arguments (Tcw, Xw, obs, K,
-    fixed_cam, fixed_lm), camera 0 fixed, are ``bench_gba``'s problem from
-    the same ``np.random.default_rng(7)`` draws in the same order."""
+def gba_problem(device="cuda"):
+    """``bench_gba``'s problem (Tcw, Xw, obs, K, fixed_cam, fixed_lm),
+    camera 0 fixed, from the same ``np.random.default_rng(7)`` draws in the
+    same order; observations are camera-major (1000 a camera)."""
     device = torch.device(device)
     rng = np.random.default_rng(7)
     C, L = 2048, 65536
@@ -103,4 +110,183 @@ def gba_entry(device="cuda"):
     fixed_cam[0] = True
     Tcw_t, Xw_t, K_t, fc_t, fl_t = convert.gba_state_from_numpy(
         Tcw, pts, K, fixed_cam, np.zeros(L, bool), device)
-    return sharded_ba.make_tile_gba(pcg_iters=25), (Tcw_t, Xw_t, obs, K_t, fc_t, fl_t)
+    return Tcw_t, Xw_t, obs, K_t, fc_t, fl_t
+
+
+def gba_entry(device="cuda"):
+    """(fn, example_args) of the server GBA: ``fn`` is
+    ``make_tile_gba(pcg_iters=25)``; the arguments are ``gba_problem``'s."""
+    return sharded_ba.make_tile_gba(pcg_iters=25), gba_problem(device)
+
+
+def matrix_free_gba_entry(device="cuda"):
+    """(fn, example_args) of the dual-layout matrix-free GBA: ``fn`` is
+    ``make_matrix_free_gba(pcg_iters=25)``; the arguments are
+    ``gba_problem``'s."""
+    return sharded_ba.make_matrix_free_gba(pcg_iters=25), gba_problem(device)
+
+
+# ---------------------------------------------------------------------------
+# A server map at capacity for the Motion-Check-gated GBA driver
+# ---------------------------------------------------------------------------
+
+# The server operating point: 2048 keyframe slots of 1024 features and
+# 65,536 landmark slots (config.CapacityParams), the reference's 20-iteration
+# GBA (config.yaml:129) and Motion Check's default thresholds.
+SERVER_CONFIG = DEFAULT_CONFIG
+N_CLIENTS = 4
+KF_STEP_DEG = 11.25
+OBS_NOISE_PX = 0.5
+LM_NOISE_M = 0.02
+
+
+class ServerScene(NamedTuple):
+    """A server map made with numpy: the KF and MP blocks' live fields and
+    the true poses."""
+
+    Tcw: np.ndarray        # (NK, 4, 4) keyframe poses (the truth)
+    client_id: np.ndarray  # (NK,) i32
+    kf_id: np.ndarray      # (NK,) i32 client-local id
+    timestamp: np.ndarray  # (NK,) f32
+    xy: np.ndarray         # (NK, F, 2) noisy projections
+    mp_idx: np.ndarray     # (NK, F) i32 landmark slot per feature
+    Xw: np.ndarray         # (NM, 3) landmark positions (perturbed)
+    Xw_true: np.ndarray    # (NM, 3)
+    ref_kf: np.ndarray     # (NM,) i32 first observing keyframe slot
+
+
+def _ring_pose(theta: float, radius: float, y: float) -> np.ndarray:
+    """A camera at (r cos th, y, r sin th) looking radially outward."""
+    C = np.array([radius * np.cos(theta), y, radius * np.sin(theta)])
+    fwd = np.array([np.cos(theta), 0.0, np.sin(theta)])
+    x = np.cross([0.0, 1.0, 0.0], fwd)
+    x /= np.linalg.norm(x)
+    R_wc = np.stack([x, np.cross(fwd, x), fwd], -1)
+    T = np.eye(4)
+    T[:3, :3] = R_wc.T
+    T[:3, 3] = -R_wc.T @ C
+    return T
+
+
+def _tilt() -> np.ndarray:
+    """The rotation taking the y axis to (1, 1, 1)/sqrt(3)."""
+    n = np.ones(3) / np.sqrt(3.0)
+    x = np.cross([0.0, 1.0, 0.0], n)
+    x /= np.linalg.norm(x)
+    return np.stack([x, n, np.cross(x, n)], -1)
+
+
+def server_poses(n_kfs: int) -> np.ndarray:
+    """(n_kfs, 4, 4) true poses of the server map's N_CLIENTS trajectories
+    (n_kfs / N_CLIENTS keyframes each): cameras on rings of 5-6.4 m radius
+    looking outward, 11.25 degrees a keyframe (16 laps of 512 keyframes, each
+    at another radius and height), bobbing along the ring's axis.
+
+    The scene is built about its own y axis, then tilted so that this axis
+    is (1, 1, 1)/sqrt(3) in the world: every step's projection onto the
+    world's xy, yz and zx planes then turns each keyframe. Motion Check's
+    per-plane limits are 5x the xy turn (a reference quirk), so a projection
+    with an inflection, where that turn passes through 0, would flag
+    mm-level honest refinements; the bob (0.1 m, 3 cycles a lap) is small
+    enough that the xy projection has none (tests/test_torch_motion_check.py
+    holds the turn and the verdict under pose error)."""
+    per = n_kfs // N_CLIENTS
+    T0_inv = np.eye(4)
+    T0_inv[:3, :3] = _tilt().T
+    Tcw = np.zeros((n_kfs, 4, 4), np.float32)
+    for s in range(n_kfs):
+        c, k = divmod(s, per)
+        theta = np.deg2rad(90.0 * c + KF_STEP_DEG * k)
+        lap = k * KF_STEP_DEG / 360.0
+        radius = 5.0 + 0.3 * c + 0.4 * np.sin(1.3 * lap + c)
+        y = 0.1 * np.sin(3.0 * theta) + 0.3 * np.sin(0.7 * lap + 2.0 * c)
+        Tcw[s] = _ring_pose(theta, radius, y) @ T0_inv
+    return Tcw
+
+
+@functools.lru_cache(maxsize=2)
+def server_scene(seed: int = 0) -> ServerScene:
+    """The server map at capacity: ``server_poses``' 4 x 512 keyframes
+    inside a cylindrical band of 65,536 landmarks (radius 10-12 m, 4 m
+    tall, tilted with the rings). Each keyframe observes 1024 landmarks
+    drawn from those in its view, with 0.5 px noise; landmark positions
+    carry 2 cm of triangulation error, the poses are the truth."""
+    cfg = SERVER_CONFIG
+    cam = cfg.camera
+    NK, NM = cfg.capacity.server_max_kfs, cfg.capacity.server_max_mps
+    F = cfg.extractor.max_features
+    per = NK // N_CLIENTS
+    rng = np.random.default_rng(seed)
+    th = rng.uniform(0, 2 * np.pi, NM)
+    r = 11.0 + rng.uniform(-1.0, 1.0, NM)
+    pts = np.stack([r * np.cos(th), rng.uniform(-2.0, 2.0, NM), r * np.sin(th)], -1) \
+        @ _tilt().T
+    Kmat = cam.K().astype(np.float64)
+    Tcw = server_poses(NK)
+    xy = np.zeros((NK, F, 2), np.float32)
+    mp_idx = np.full((NK, F), -1, np.int32)
+    client_id = np.repeat(np.arange(N_CLIENTS), per).astype(np.int32)
+    kf_id = np.tile(np.arange(per), N_CLIENTS).astype(np.int32)
+    timestamp = (kf_id * 0.25).astype(np.float32)
+    for s in range(NK):
+        T = Tcw[s].astype(np.float64)
+        pc = pts @ T[:3, :3].T + T[:3, 3]
+        z = np.maximum(pc[:, 2], 1e-6)
+        u = Kmat[0, 0] * pc[:, 0] / z + Kmat[0, 2]
+        v = Kmat[1, 1] * pc[:, 1] / z + Kmat[1, 2]
+        vis = np.flatnonzero((pc[:, 2] > 0.2) & (u >= 10) & (u < cam.width - 10)
+                             & (v >= 10) & (v < cam.height - 10))
+        sel = np.sort(rng.choice(vis, min(F, vis.size), replace=False))
+        n = sel.size
+        xy[s, :n] = np.stack([u[sel], v[sel]], -1) + rng.normal(0, OBS_NOISE_PX, (n, 2))
+        mp_idx[s, :n] = sel
+    first = np.full(NM, NK, np.int64)
+    seen = mp_idx >= 0
+    np.minimum.at(first, mp_idx[seen], np.nonzero(seen)[0])
+    ref_kf = np.where(first < NK, first, -1).astype(np.int32)
+    Xw = pts + rng.normal(0, LM_NOISE_M, pts.shape)
+    return ServerScene(Tcw=Tcw, client_id=client_id, kf_id=kf_id, timestamp=timestamp,
+                       xy=xy, mp_idx=mp_idx, Xw=Xw.astype(np.float32),
+                       Xw_true=pts.astype(np.float32), ref_kf=ref_kf)
+
+
+def server_map(scene: ServerScene, device="cuda") -> map_state.MapState:
+    """A fresh server MapState holding ``scene``: every keyframe and
+    landmark slot valid, each client's keyframes chained by parent/pred."""
+    device = torch.device(device)
+    cfg = SERVER_CONFIG
+    m = map_state.MapState.create(cfg, server=True, device=device)
+    NK, NM = m.nk, m.nm
+    per = NK // N_CLIENTS
+    chain = np.arange(NK, dtype=np.int32) - 1
+    chain[::per] = -1
+
+    def t(a, dtype):     # a copy: the scene's arrays are shared by its cache
+        return torch.tensor(a, dtype=dtype, device=device)
+
+    feat_valid = scene.mp_idx >= 0
+    m.kf = m.kf._replace(
+        kf_id=t(scene.kf_id, torch.int32), client_id=t(scene.client_id, torch.int32),
+        timestamp=t(scene.timestamp, torch.float32), Tcw=t(scene.Tcw, torch.float32),
+        xy=t(scene.xy, torch.float32), feat_valid=t(feat_valid, torch.bool),
+        mp_idx=t(scene.mp_idx, torch.int32), parent=t(chain, torch.int32),
+        pred=t(chain, torch.int32), valid=torch.ones(NK, dtype=torch.bool, device=device))
+    mp_client = scene.client_id[np.maximum(scene.ref_kf, 0)]
+    m.mp = m.mp._replace(
+        mp_id=torch.arange(NM, dtype=torch.int32, device=device),
+        client_id=t(mp_client, torch.int32), Xw=t(scene.Xw, torch.float32),
+        min_dist=torch.full((NM,), 0.1, device=device),
+        max_dist=torch.full((NM,), 100.0, device=device),
+        ref_kf=t(scene.ref_kf, torch.int32),
+        valid=torch.ones(NM, dtype=torch.bool, device=device))
+    m.sync_host_index()
+    m.next_kf_slot = 0
+    return m
+
+
+def server_gba_entry(device="cuda", seed: int = 0):
+    """(fn, example_args) of the Motion-Check-gated GBA driver: ``fn`` is
+    ``models.gba.run_gba``; the arguments are a server map at capacity made
+    from ``server_scene(seed)`` and ``SERVER_CONFIG``. ``_pick_solver``
+    routes a map of this size to the tile-stream GBA."""
+    return gba.run_gba, (server_map(server_scene(seed), device), SERVER_CONFIG)

@@ -1,4 +1,4 @@
-"""Tile-stream GBA kernels K3-K7 as CUDA C++ for Hopper.
+"""Tile-stream GBA kernels K3-K9 as CUDA C++ for Hopper.
 
 Counterpart of ``motioncheck_ccm_slam_tpu/ops/schur_pallas.py``. The
 kernels live in ``csrc/schur.cu`` (plain C interface), are built with
@@ -18,6 +18,13 @@ gathers and bf16 splits are TPU layout and are not carried over).
 - ``d2_precond`` (K5): per-camera upper triangle of sum W Hll^-1 W^T.
 - ``apply_a_raw`` (K6): u = Hll^-1 sum W^T v[cam] per landmark.
 - ``apply_b_raw`` (K7): per-camera sum of W u[lm].
+- ``d0_cost`` (K8): the robust cost of a state, one scalar (K3's per-slot
+  projection and Huber cost, reduced).
+- ``expand_sorted_streams`` (K9): per slot the camera's R and t and the
+  landmark's X, the matrix-free GBA's landmark-side streams.
+- ``apply_a``, ``apply_b``, ``schur_apply``: the plan-form wrappers of the
+  matrix-free GBA; they take a ``SchurPlan`` on the device and launch K6's
+  and K7's kernels (``schur_apply``: K6 then K7).
 
 Each wrapper has a plain torch version beside it (``*_ref``: per-slot
 tensor arithmetic plus ``index_add_``). A CPU tensor goes to the plain
@@ -67,6 +74,14 @@ class SchurPlan(NamedTuple):
     perm: np.ndarray        # (ntl*TP,) i64 into the sorted stream (pad -> O)
     camid: np.ndarray       # (ntl*TP,) i32, pad -> 0
     lmloc: np.ndarray       # (ntl*TP,) i32 tile-local landmark id, pad -> 0
+
+    def to(self, device) -> "SchurPlan":
+        """The plan with its index arrays as tensors on ``device`` (perm
+        i64, camid and lmloc i32): the form the plan-form wrappers take."""
+        def t(a, dtype):
+            return torch.as_tensor(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+        return self._replace(perm=t(self.perm, torch.int64), camid=t(self.camid, torch.int32),
+                             lmloc=t(self.lmloc, torch.int32))
 
 
 def build_schur_plan(lm_sorted, cam_sorted, L: int, valid_sorted=None) -> SchurPlan:
@@ -140,6 +155,8 @@ def _library() -> ctypes.CDLL:
         "mcs_d2_precond": [p] * 4 + [i, i, p, p],
         "mcs_apply_a": [p] * 5 + [i, i, p, p],
         "mcs_apply_b": [p] * 4 + [i, i, p, p],
+        "mcs_d0_cost": [p] * 8 + [i, i, p, p],
+        "mcs_expand_streams": [p] * 4 + [i, i, p, p],
     })
 
 
@@ -171,6 +188,17 @@ def _check_ids(camid, lmloc, TP: int) -> int:
     return OP // TP
 
 
+def _check_plan(plan) -> int:
+    """Checks a plan's device index arrays; returns ntl."""
+    if not isinstance(plan.camid, torch.Tensor):
+        raise TypeError("plan: expected index tensors (SchurPlan.to(device))")
+    ntl = _check_ids(plan.camid, plan.lmloc, plan.TP)
+    if ntl != plan.ntl or plan.L_pad != ntl * LM_BLOCK:
+        raise ValueError(f"plan: {ntl} tiles of {plan.TP} slots do not match "
+                         f"ntl={plan.ntl}, L_pad={plan.L_pad}")
+    return ntl
+
+
 def _slot_lm(lmloc: torch.Tensor, TP: int) -> torch.Tensor:
     """(OP,) global landmark id of each slot."""
     tiles = torch.arange(lmloc.shape[0], device=lmloc.device) // TP
@@ -185,17 +213,14 @@ def _stream() -> int:
 # K3: one linearisation pass
 # ---------------------------------------------------------------------------
 
-def d1_assemble_ref(camid, lmloc, uv, is2, valid, free, kp, pose, X, *, TP: int):
-    """Plain torch version of K3 (the arithmetic of the Pallas kernel's
-    ``_project`` and ``_d1_kernel``, slot by slot)."""
-    OP = camid.shape[0]
-    L_pad = OP // TP * LM_BLOCK
-    C = pose.shape[0]
+def _project_ref(camid, lmloc, uv, is2, valid, kp, pose, X, TP: int):
+    """Plain torch version of the per-slot stage K3 and K8 share: p_c =
+    R X + t, the depth guard, the residual, chi2, the Huber weight and the
+    robust cost. Returns a dict of (OP,) rows plus R (OP, 3, 3)."""
     cam = camid.long()
-    lm = _slot_lm(lmloc, TP)
     T = pose[cam]                                    # (OP, 12)
     R = T[:, :9].reshape(-1, 3, 3)
-    Xs = X[lm]
+    Xs = X[_slot_lm(lmloc, TP)]
     pc = (R * Xs[:, None, :]).sum(-1) + T[:, 9:]     # (OP, 3)
     pc0, pc1, pc2 = pc.unbind(1)
     fx, fy, cx, cy = kp.unbind(0)
@@ -208,9 +233,24 @@ def d1_assemble_ref(camid, lmloc, uv, is2, valid, free, kp, pose, X, *, TP: int)
     d = HUBER_DELTA
     core = e <= d
     hw = torch.where(core, torch.ones_like(e), d / e)
-    w = is2 * hw * valid * front.float()
-    rho = torch.where(core, chi2, 2.0 * d * e - d * d) * valid
-    inlier = valid * front.float() * (chi2 <= CHI2_MONO).float()
+    return dict(R=R, pc0=pc0, pc1=pc1, pc2=pc2, front=front, iz=iz, rx=rx, ry=ry,
+                chi2=chi2, w=is2 * hw * valid * front.float(),
+                rho=torch.where(core, chi2, 2.0 * d * e - d * d) * valid)
+
+
+def d1_assemble_ref(camid, lmloc, uv, is2, valid, free, kp, pose, X, *, TP: int):
+    """Plain torch version of K3 (the arithmetic of the Pallas kernel's
+    ``_project`` and ``_d1_kernel``, slot by slot)."""
+    OP = camid.shape[0]
+    L_pad = OP // TP * LM_BLOCK
+    C = pose.shape[0]
+    cam = camid.long()
+    lm = _slot_lm(lmloc, TP)
+    p = _project_ref(camid, lmloc, uv, is2, valid, kp, pose, X, TP)
+    R, pc0, pc1, pc2, iz = p["R"], p["pc0"], p["pc1"], p["pc2"], p["iz"]
+    rx, ry, chi2, w, rho = p["rx"], p["ry"], p["chi2"], p["w"], p["rho"]
+    fx, fy = kp[0], kp[1]
+    inlier = valid * p["front"].float() * (chi2 <= CHI2_MONO).float()
     a00, a02 = fx * iz, -fx * pc0 * iz * iz
     a11, a12 = fy * iz, -fy * pc1 * iz * iz
     zero = torch.zeros_like(a00)
@@ -326,6 +366,31 @@ def _check_v(v, dev):
     return v.shape[0]
 
 
+def _k6(camid, lmloc, W18, v, H9, ntl: int, TP: int) -> torch.Tensor:
+    """Launches K6 on checked CUDA arguments: u (3, L_pad)."""
+    dev = camid.device
+    lib = _library()
+    with torch.cuda.device(dev):
+        u = torch.empty((3, ntl * LM_BLOCK), dtype=torch.float32, device=dev)
+        err = lib.mcs_apply_a(camid.data_ptr(), lmloc.data_ptr(), W18.data_ptr(),
+                              v.data_ptr(), H9.data_ptr(), ntl, TP, u.data_ptr(),
+                              _stream())
+    cuda_build.check_launch(err, "apply_a")
+    return u
+
+
+def _k7(camid, lmloc, W18, u, C: int, ntl: int, TP: int) -> torch.Tensor:
+    """Launches K7 on checked CUDA arguments: (C, 6)."""
+    dev = camid.device
+    lib = _library()
+    with torch.cuda.device(dev):
+        out = torch.zeros((C, 6), dtype=torch.float32, device=dev)
+        err = lib.mcs_apply_b(camid.data_ptr(), lmloc.data_ptr(), W18.data_ptr(),
+                              u.data_ptr(), ntl, TP, out.data_ptr(), _stream())
+    cuda_build.check_launch(err, "apply_b")
+    return out
+
+
 def apply_a_raw(camid, lmloc, W18, v, H9, *, TP: int):
     """K6: u (3, L_pad) = Hll^-1[l] @ sum_{obs of l} W^T v[cam], with H9
     (9, L_pad) holding Hll^-1 rows i*3+j."""
@@ -335,13 +400,7 @@ def apply_a_raw(camid, lmloc, W18, v, H9, *, TP: int):
     _check(H9, "H9", torch.float32, (9, L_pad), dev)
     if dev.type == "cpu":
         return apply_a_raw_ref(camid, lmloc, W18, v, H9, TP=TP)
-    lib = _library()
-    with torch.cuda.device(dev):
-        u = torch.empty((3, L_pad), dtype=torch.float32, device=dev)
-        err = lib.mcs_apply_a(camid.data_ptr(), lmloc.data_ptr(), W18.data_ptr(),
-                              v.data_ptr(), H9.data_ptr(), ntl, TP, u.data_ptr(),
-                              _stream())
-    cuda_build.check_launch(err, "apply_a_raw")
+    u = _k6(camid, lmloc, W18, v, H9, ntl, TP)
     apply_a_raw.launches += 1
     return u
 
@@ -356,12 +415,7 @@ def apply_b_raw(camid, lmloc, W18, u, C: int, *, TP: int):
     _check(u, "u", torch.float32, (3, L_pad), dev)
     if dev.type == "cpu":
         return apply_b_raw_ref(camid, lmloc, W18, u, C, TP=TP)
-    lib = _library()
-    with torch.cuda.device(dev):
-        out = torch.zeros((C, 6), dtype=torch.float32, device=dev)
-        err = lib.mcs_apply_b(camid.data_ptr(), lmloc.data_ptr(), W18.data_ptr(),
-                              u.data_ptr(), ntl, TP, out.data_ptr(), _stream())
-    cuda_build.check_launch(err, "apply_b_raw")
+    out = _k7(camid, lmloc, W18, u, C, ntl, TP)
     apply_b_raw.launches += 1
     return out
 
@@ -429,3 +483,173 @@ def d2_precond(camid, lmloc, W18, H9, C: int, *, TP: int):
 
 
 d2_precond.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K8: the robust cost of a state
+# ---------------------------------------------------------------------------
+
+def d0_cost_ref(camid, lmloc, uv, is2, valid, kp, pose, X, *, TP: int):
+    """Plain torch version of K8: the sum of K3's per-slot robust cost."""
+    return torch.sum(_project_ref(camid, lmloc, uv, is2, valid, kp, pose, X, TP)["rho"])
+
+
+def d0_cost(camid, lmloc, uv, is2, valid, kp, pose, X, *, TP: int):
+    """K8: the robust cost of the state (pose (C, 12), X (L_pad, 3)) over
+    the tile stream, a 0-d f32 tensor. Arguments as ``d1_assemble``'s
+    without ``free``. Slots with valid = 0 (pads, invalid observations) add
+    exact zeros and are skipped."""
+    ntl = _check_ids(camid, lmloc, TP)
+    OP, L_pad, dev = camid.shape[0], ntl * LM_BLOCK, camid.device
+    f32 = torch.float32
+    _check(uv, "uv", f32, (OP, 2), dev)
+    for name, t in (("is2", is2), ("valid", valid)):
+        _check(t, name, f32, (OP,), dev)
+    _check(kp, "kp", f32, (4,), dev)
+    if not isinstance(pose, torch.Tensor) or pose.dim() != 2:
+        raise ValueError("pose: expected a (C, 12) tensor")
+    _check(pose, "pose", f32, (pose.shape[0], 12), dev)
+    _check(X, "X", f32, (L_pad, 3), dev)
+    if dev.type == "cpu":
+        return d0_cost_ref(camid, lmloc, uv, is2, valid, kp, pose, X, TP=TP)
+    lib = _library()
+    with torch.cuda.device(dev):
+        out = torch.zeros((), dtype=f32, device=dev)
+        err = lib.mcs_d0_cost(camid.data_ptr(), lmloc.data_ptr(), uv.data_ptr(),
+                              is2.data_ptr(), valid.data_ptr(), kp.data_ptr(),
+                              pose.data_ptr(), X.data_ptr(), ntl, TP, out.data_ptr(),
+                              _stream())
+    cuda_build.check_launch(err, "d0_cost")
+    d0_cost.launches += 1
+    return out
+
+
+d0_cost.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The matrix-free GBA's plan form: K9 and the plan-form Schur products
+# ---------------------------------------------------------------------------
+
+def pose_table(Tcw: torch.Tensor) -> torch.Tensor:
+    """(C, 4, 4) -> (C, 12): R row-major, then t."""
+    C = Tcw.shape[0]
+    return torch.cat([Tcw[:, :3, :3].reshape(C, 9), Tcw[:, :3, 3]], 1).contiguous()
+
+
+def _split_streams(out: torch.Tensor):
+    OP = out.shape[1]
+    return out[0:9].reshape(3, 3, OP), out[9:12], out[12:15]
+
+
+def expand_sorted_streams_ref(plan: SchurPlan, Tcw, Xw):
+    """Plain torch version of K9: two indexing gathers."""
+    tab = pose_table(Tcw)[plan.camid.long()]                   # (OP, 12)
+    X = Xw[_slot_lm(plan.lmloc, plan.TP)]                      # (OP, 3)
+    return _split_streams(torch.cat([tab.T, X.T], 0))
+
+
+def expand_sorted_streams(plan: SchurPlan, Tcw, Xw):
+    """K9: (C, 4, 4) poses and (L, 3) landmarks -> the per-slot streams of
+    the plan: R (3, 3, OP) row-major, t (3, OP) and X (3, OP), views of one
+    (15, OP) tensor. Pad slots read camera 0 and their tile's first
+    landmark (their weights are zeroed downstream). Pure data movement:
+    bitwise equal to the plain version."""
+    ntl = _check_plan(plan)
+    dev = plan.camid.device
+    if not isinstance(Tcw, torch.Tensor) or Tcw.dim() != 3:
+        raise ValueError("Tcw: expected a (C, 4, 4) tensor")
+    _check(Tcw, "Tcw", torch.float32, (Tcw.shape[0], 4, 4), dev)
+    if not isinstance(Xw, torch.Tensor) or Xw.dim() != 2:
+        raise ValueError("Xw: expected an (L, 3) tensor")
+    L = Xw.shape[0]
+    if not (ntl - 1) * LM_BLOCK < L <= plan.L_pad:
+        raise ValueError(f"Xw: {L} landmarks do not fill the plan's {ntl} tiles")
+    _check(Xw, "Xw", torch.float32, (L, 3), dev)
+    if dev.type == "cpu":
+        return expand_sorted_streams_ref(plan, Tcw, Xw)
+    tab = pose_table(Tcw)
+    lib = _library()
+    with torch.cuda.device(dev):
+        out = torch.empty((15, plan.camid.shape[0]), dtype=torch.float32, device=dev)
+        err = lib.mcs_expand_streams(plan.camid.data_ptr(), plan.lmloc.data_ptr(),
+                                     tab.data_ptr(), Xw.data_ptr(), ntl, plan.TP,
+                                     out.data_ptr(), _stream())
+    cuda_build.check_launch(err, "expand_sorted_streams")
+    expand_sorted_streams.launches += 1
+    return _split_streams(out)
+
+
+expand_sorted_streams.launches = 0
+
+
+def apply_a_ref(plan: SchurPlan, Wp, v, H9):
+    """Plain torch version of the plan-form K6."""
+    return apply_a_raw_ref(plan.camid, plan.lmloc, Wp, v, H9, TP=plan.TP)
+
+
+def apply_b_ref(plan: SchurPlan, Wp, u, C: int):
+    """Plain torch version of the plan-form K7."""
+    return apply_b_raw_ref(plan.camid, plan.lmloc, Wp, u, C, TP=plan.TP)
+
+
+def schur_apply_ref(plan: SchurPlan, Wp, v, H9):
+    """Plain torch version of ``schur_apply``."""
+    return apply_b_ref(plan, Wp, apply_a_ref(plan, Wp, v, H9), v.shape[0])
+
+
+def _check_plan_w(plan, Wp):
+    ntl = _check_plan(plan)
+    _check(Wp, "Wp", torch.float32, (18, plan.camid.shape[0]), plan.camid.device)
+    return ntl
+
+
+def apply_a(plan: SchurPlan, Wp, v, H9):
+    """K6 on a plan: u (3, L_pad) = Hll^-1 sum_obs W^T v[cam], with Wp the
+    (18, OP) J-major W stream and H9 (9, L_pad) Hll^-1 rows i*3+j."""
+    ntl = _check_plan_w(plan, Wp)
+    dev = plan.camid.device
+    _check_v(v, dev)
+    _check(H9, "H9", torch.float32, (9, plan.L_pad), dev)
+    if dev.type == "cpu":
+        return apply_a_ref(plan, Wp, v, H9)
+    u = _k6(plan.camid, plan.lmloc, Wp, v, H9, ntl, plan.TP)
+    apply_a.launches += 1
+    return u
+
+
+apply_a.launches = 0
+
+
+def apply_b(plan: SchurPlan, Wp, u, C: int):
+    """K7 on a plan: (C, 6) per-camera sums of W u[lm], u (3, L_pad)."""
+    ntl = _check_plan_w(plan, Wp)
+    dev = plan.camid.device
+    _check(u, "u", torch.float32, (3, plan.L_pad), dev)
+    if dev.type == "cpu":
+        return apply_b_ref(plan, Wp, u, C)
+    out = _k7(plan.camid, plan.lmloc, Wp, u, C, ntl, plan.TP)
+    apply_b.launches += 1
+    return out
+
+
+apply_b.launches = 0
+
+
+def schur_apply(plan: SchurPlan, Wp, v, H9):
+    """One W Hll^-1 W^T v product on a plan -> (C, 6) per-camera sums: K6
+    then K7, two kernel launches counted as one. The caller forms
+    S v = Hcc_d v - result."""
+    ntl = _check_plan_w(plan, Wp)
+    dev = plan.camid.device
+    C = _check_v(v, dev)
+    _check(H9, "H9", torch.float32, (9, plan.L_pad), dev)
+    if dev.type == "cpu":
+        return schur_apply_ref(plan, Wp, v, H9)
+    u = _k6(plan.camid, plan.lmloc, Wp, v, H9, ntl, plan.TP)
+    out = _k7(plan.camid, plan.lmloc, Wp, u, C, ntl, plan.TP)
+    schur_apply.launches += 1
+    return out
+
+
+schur_apply.launches = 0

@@ -1,9 +1,15 @@
-"""Tile-stream global bundle adjustment on one device.
+"""Matrix-free global bundle adjustment on one device.
 
-Counterpart of the tile part of
-``motioncheck_ccm_slam_tpu/parallel/sharded_ba.py`` (``make_tile_gba`` and
-what it runs), the server's GBA at scale: the replacement for g2o's
-``MapFusionGBA`` (reference src/Optimizer.cpp:646).
+Counterpart of the single-device part of
+``motioncheck_ccm_slam_tpu/parallel/sharded_ba.py``: the server's GBA at
+scale, the replacement for g2o's ``MapFusionGBA`` (reference
+src/Optimizer.cpp:646). Two solvers:
+
+- ``make_tile_gba``: the tile-stream GBA (kernels K3-K7), below;
+- ``make_matrix_free_gba``: the dual-layout solver (K9 and the plan-form
+  Schur products), at the end of the module.
+
+**The tile-stream GBA.**
 
 Observations are laid out in landmark-aligned tiles (``TilePlan``), so
 every landmark-side quantity (Hll, bl, Hll^-1, u, dl) is a function of one
@@ -20,9 +26,23 @@ tile. Each LM iteration:
    linearisation; accept/reject stays on the device.
 
 The PCG loop is a Python loop: its exit test reads one scalar to the host
-per sweep (the JAX package's ``while_loop`` keeps it on the device). The
-multi-device mesh, the TPU routing toggles and the gather formulations of
-the JAX module are not part of this module.
+per sweep (the JAX package's ``while_loop`` keeps it on the device).
+
+**The matrix-free GBA** (``_gba_iteration_cm``) keeps the observation
+stream in two layouts: camera-major (the caller's order, observation o =
+c * seg + i) for the camera blocks, the cost and the preconditioner, and
+the plan's landmark-aligned tile stream for the landmark blocks and the W
+stream the Schur products read. It always runs the JAX module's plan form
+(its ``sp_statics`` branch with the stream and br/dl toggles on): K9
+materialises the tile stream's R, t and X, every PCG product is one
+``schur_apply``, br one ``apply_b`` and the back-substitution one
+``apply_a``.
+
+Left out, as TPU routing: the multi-device mesh, the gather/cumsum
+formulation of the Schur product and the ``MCSLAM_PALLAS_*`` /
+``MCSLAM_TILE_GBA`` / ``PALLAS_SCHUR_MIN_CAMS`` switches that choose
+between them (tile padding pays off only on a TPU at scale); the port has
+one route per solver.
 """
 from __future__ import annotations
 
@@ -33,7 +53,7 @@ import torch
 
 from ..ops import schur_cuda
 from ..solvers import ba_core
-from ..solvers.local_ba import BAResult
+from ..solvers.local_ba import BAResult, _robust_cost
 
 # Eisenstat-Walker forcing for the inner PCG solve: rtol_k =
 # clip(sqrt(|g_k| / |g_0|), EW_FLOOR, EW_MAX), loose while the gradient is
@@ -160,18 +180,12 @@ def tile_streams(tp: TilePlan, obs: ba_core.BAObservations, K, fixed_cam,
                        kp=kp.contiguous())
 
 
-def _pose_table(Tcw) -> torch.Tensor:
-    """(C, 4, 4) -> (C, 12): R row-major, then t."""
-    C = Tcw.shape[0]
-    return torch.cat([Tcw[:, :3, :3].reshape(C, 9), Tcw[:, :3, 3]], 1).contiguous()
-
-
 def _tile_linearize(Tcw, Xw_pad, tp: TilePlan, st: TileStreams):
     """One K3 pass at (Tcw, Xw): the full linearisation (W stream, aux
     rows, landmark Hll+bl, camera Hcc+bc) plus the exact robust cost."""
     W18, aux, hllbl, cam27 = schur_cuda.d1_assemble(
         tp.camid, tp.lmloc, st.uv, st.is2, st.valid, st.free, st.kp,
-        _pose_table(Tcw), Xw_pad.contiguous(), TP=tp.TP)
+        schur_cuda.pose_table(Tcw), Xw_pad.contiguous(), TP=tp.TP)
     return W18, aux, hllbl, cam27, torch.sum(aux[0])
 
 
@@ -289,5 +303,286 @@ def make_tile_gba(iterations: int = 5, pcg_iters: int = 25):
             Tcw, Xw_pad, fixed_cam, fixed_lm_pad, n_it, pcg_iters, tp, st)
         inlier = inlier_slots[tp.slot_of] & obs.valid
         return BAResult(Tcw=Tcw_o, Xw=Xw_o[:L], obs_inlier=inlier, cost=cost)
+
+    return gba
+
+
+# ---------------------------------------------------------------------------
+# The dual-layout matrix-free GBA
+# ---------------------------------------------------------------------------
+
+def _rep_cam(x, seg: int):
+    """(..., C) -> (..., C*seg): a per-camera quantity repeated for each of
+    its observations in a camera-major stream (a broadcast, not a gather)."""
+    b = x[..., None].expand(x.shape + (seg,))
+    return b.reshape(x.shape[:-1] + (x.shape[-1] * seg,))
+
+
+def _cam_sum_t(x, C: int, seg: int):
+    """(..., C*seg) camera-major -> (..., C) reshape-sum."""
+    return x.reshape(x.shape[:-1] + (C, seg)).sum(-1)
+
+
+def _lm_sum_t(x_sorted, bounds):
+    """(..., O) sorted by landmark -> (..., L): segment sums by prefix sum
+    and boundary difference along the last axis. The prefix sum is taken
+    in float64: at 2M observations a float32 running sum of ~1e4-sized
+    Hessian entries would lose ~1e-2 of a landmark's ~1e5-sized block to
+    cancellation."""
+    cs = torch.cumsum(x_sorted.double(), -1)
+    cs = torch.cat([torch.zeros_like(cs[..., :1]), cs], -1)
+    return (cs[..., bounds[1:]] - cs[..., bounds[:-1]]).to(x_sorted.dtype)
+
+
+def _pair_sum(a, b):
+    """sum_k a[k, i, o] b[k, j, o] -> (I, J, O), written out over the k
+    axis (2 rows) rather than as a batched product of tiny matrices."""
+    return sum(a[k][:, None] * b[k][None, :] for k in range(a.shape[0]))
+
+
+def _obs_pipeline(R_t, t_t, X_t, uv_t, inv_sigma2, valid, K):
+    """Residual and Jacobian pipeline of one observation stream in
+    component-major layout (every array (components..., O)). Pure
+    per-element arithmetic, so the same observation gives the same values
+    in either layout. Returns (r (2, O), chi2 (O,), w (O,), Jc (2, 6, O),
+    Jl (2, 3, O))."""
+    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    pc = (R_t * X_t[None]).sum(1) + t_t                        # (3, O)
+    z = pc[2]
+    depth_ok = z > 1e-6
+    iz = 1.0 / torch.where(depth_ok, z, torch.ones_like(z))
+    r_t = uv_t - torch.stack([fx * pc[0] * iz + cx, fy * pc[1] * iz + cy])
+    chi2 = torch.sum(r_t * r_t, 0) * inv_sigma2
+    w = inv_sigma2 * ba_core.huber_weights(chi2)
+    w = torch.where(valid & depth_ok, w, torch.zeros_like(w))
+    # dproj/dpc (2, 3); dpc/dxi = [-hat(pc) | I]; dpc/dX = R
+    iz2 = iz * iz
+    zo = torch.zeros_like(z)
+    d00, d02 = fx * iz, -fx * pc[0] * iz2
+    d11, d12 = fy * iz, -fy * pc[1] * iz2
+    # Jc = -dproj @ [-hat(pc) | I], rows (omega, upsilon)
+    Jc = torch.stack([
+        torch.stack([-(d02 * pc[1]), -(d00 * pc[2] - d02 * pc[0]), d00 * pc[1],
+                     -d00, zo, -d02]),
+        torch.stack([d11 * pc[2] - d12 * pc[1], d12 * pc[0], -(d11 * pc[0]),
+                     zo, -d11, -d12]),
+    ])                                                         # (2, 6, O)
+    Jl = -torch.stack([d00 * R_t[0] + d02 * R_t[2],
+                       d11 * R_t[1] + d12 * R_t[2]])           # (2, 3, O)
+    return r_t, chi2, w, Jc, Jl
+
+
+class MatrixFreePlan(NamedTuple):
+    """Host-built, per-problem plan of the matrix-free GBA, on the device:
+    the Schur plan and the landmark-side stream of its padded tile order."""
+
+    sp: schur_cuda.SchurPlan   # on the device (SchurPlan.to)
+    seg: int                   # observations per camera (O = C * seg)
+    to_orig: torch.Tensor      # (OP,) i64 slot -> camera-major obs (pad -> O)
+    bounds: torch.Tensor       # (L+1,) i64 landmark segments in slot order
+    lm_p: torch.Tensor         # (OP,) i64 landmark per slot (clamped to L-1)
+
+
+def build_matrix_free_plan(obs: ba_core.BAObservations, C: int, L: int) -> MatrixFreePlan:
+    """Landmark sort order and tile plan of a camera-major observation
+    stream, built with numpy and placed on the observations' device.
+    Invalid observations are left out of the tile stream. Raises on a
+    stream that is not camera-major with O = C * seg (observation o of
+    camera o // seg), and on a valid observation whose landmark index is
+    out of range."""
+    O = obs.cam_idx.shape[0]
+    seg = O // C
+    lm_np = obs.lm_idx.cpu().numpy().astype(np.int64)
+    valid_all = obs.valid.cpu().numpy().astype(bool)
+    cam_of = np.arange(O, dtype=np.int64) // max(seg, 1)
+    if O % C or (obs.cam_idx.cpu().numpy()[valid_all] != cam_of[valid_all]).any():
+        raise ValueError("matrix-free GBA needs camera-major contiguous obs")
+    lv = lm_np[valid_all]
+    if lv.size and (lv.min() < 0 or lv.max() >= L):
+        raise ValueError(f"observation index out of range (L={L})")
+    lm_np = np.where(valid_all, lm_np, 0)
+    ss = ba_core.build_sorted_segments(lm_np, L)
+    order = ss.order
+    cam_l = cam_of[order]
+    lm_sorted = lm_np[order]
+    valid_s = valid_all[order]
+    sp = schur_cuda.build_schur_plan(lm_sorted, cam_l, L, valid_sorted=valid_s)
+    OP = sp.ntl * sp.TP
+    to_orig = np.append(order, O)[sp.perm]
+    tiles = np.arange(OP, dtype=np.int64) // sp.TP
+    lm_p = np.minimum(tiles * schur_cuda.LM_BLOCK + sp.lmloc, L - 1)
+    # bounds over the padded stream: the valid observations of landmark l
+    # are contiguous; tile-tail pads fall between landmark runs
+    bv = np.zeros(L + 1, np.int64)
+    bv[1:] = np.cumsum(np.bincount(lm_sorted[valid_s], minlength=L))
+    t_l = np.arange(L, dtype=np.int64) // schur_cuda.LM_BLOCK
+    bounds = np.append(t_l * sp.TP + bv[:L] - bv[t_l * schur_cuda.LM_BLOCK], OP)
+    dev = obs.cam_idx.device
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(dev)
+
+    return MatrixFreePlan(sp=sp.to(dev), seg=seg, to_orig=t(to_orig), bounds=t(bounds),
+                          lm_p=t(lm_p))
+
+
+def _gba_iteration_cm(state, K, fixed_cam, fixed_lm, pcg_iters: int, uv_t, inv_sigma2,
+                      valid, lm_idx, uv_s, is2_s, valid_s, mp: MatrixFreePlan):
+    """One LM iteration of the dual-layout matrix-free GBA.
+
+    Camera-major pass (observation o = c * seg + i): Hcc, bc, the cost and
+    the camera-side W copy for the preconditioner. Landmark pass on the
+    plan's tile stream (K9 gives R, t, X per slot): Hll, bl and the W
+    stream of the Schur products. The residual/Jacobian pipeline gives the
+    same values for an observation in either layout, so the PCG operator
+    stays symmetric. Returns (state, cost of the candidate)."""
+    Tcw, Xw, lam, g0 = state
+    C, L, seg = Tcw.shape[0], Xw.shape[0], mp.seg
+    sp = mp.sp
+    dev, dt = Tcw.device, Tcw.dtype
+
+    # ---- camera-major pass -------------------------------------------
+    R_t = _rep_cam(Tcw[:, :3, :3].permute(1, 2, 0), seg)       # (3, 3, O)
+    t_t = _rep_cam(Tcw[:, :3, 3].T, seg)                       # (3, O)
+    X_t = Xw.T[:, lm_idx]                                      # (3, O)
+    r_t, chi2, w, Jc, Jl = _obs_pipeline(R_t, t_t, X_t, uv_t, inv_sigma2, valid, K)
+    del R_t, t_t, X_t
+    cost = _robust_cost(chi2, valid)
+    wJc = Jc * w
+    Hcc = _cam_sum_t(_pair_sum(wJc, Jc), C, seg).permute(2, 0, 1)      # (C, 6, 6)
+    bc = -_cam_sum_t((wJc * r_t[:, None]).sum(0), C, seg).T            # (C, 6)
+    Wcl_t = _pair_sum(wJc, Jl)                                         # (6, 3, O)
+    del r_t, chi2, w, Jc, Jl, wJc
+
+    # ---- landmark pass on the tile stream (K9) -----------------------
+    R_l, t_l, X_l = schur_cuda.expand_sorted_streams(sp, Tcw, Xw)
+    r_l, _chi2_l, w_l, Jc_l, Jl_l = _obs_pipeline(R_l, t_l, X_l, uv_s, is2_s, valid_s, K)
+    del R_l, t_l, X_l
+    wJl_l = Jl_l * w_l
+    Hll = _lm_sum_t(_pair_sum(wJl_l, Jl_l), mp.bounds).permute(2, 0, 1)  # (L, 3, 3)
+    bl = -_lm_sum_t((wJl_l * r_l[:, None]).sum(0), mp.bounds).T         # (L, 3)
+    Wl_t = _pair_sum(Jc_l * w_l, Jl_l)                                  # (6, 3, OP)
+    del r_l, w_l, Jc_l, Jl_l, wJl_l
+
+    # ---- damping / gauge fixing ---------------------------------------
+    eye6 = torch.eye(6, dtype=dt, device=dev)
+    Hcc_d = ba_core.damp_blocks(Hcc, lam)
+    Hcc_d = torch.where(fixed_cam[:, None, None], eye6, Hcc_d)
+    bc = torch.where(fixed_cam[:, None], torch.zeros_like(bc), bc)
+    Hll_d = ba_core.damp_blocks(Hll, lam)
+    Hll_d = torch.where(fixed_lm[:, None, None], torch.eye(3, dtype=dt, device=dev), Hll_d)
+    bl = torch.where(fixed_lm[:, None], torch.zeros_like(bl), bl)
+    free_obs = ~(_rep_cam(fixed_cam, seg) | fixed_lm[lm_idx])
+    Wcl_t = torch.where(free_obs, Wcl_t, torch.zeros_like(Wcl_t))
+    free_l = ~(fixed_cam[mp.sp.camid.long()] | fixed_lm[mp.lm_p])
+    Wl_t = torch.where(free_l, Wl_t, torch.zeros_like(Wl_t))
+    Hll_inv = ba_core.inv33(Hll_d)                                     # (L, 3, 3)
+
+    # ---- reduced camera system on the plan ----------------------------
+    # the products read W in J-major rows (row j*6+i = W[i, j])
+    Wp = Wl_t.permute(1, 0, 2).reshape(18, -1).contiguous()
+    del Wl_t
+    H9 = torch.zeros((9, sp.L_pad), dtype=dt, device=dev)
+    H9[:, :L] = Hll_inv.reshape(L, 9).T
+
+    def matvec(v):
+        Hv = torch.einsum("cij,cj->ci", Hcc_d, v)
+        return Hv - schur_cuda.schur_apply(sp, Wp, v.contiguous(), H9)
+
+    u0 = torch.einsum("lij,lj->il", Hll_inv, bl)                       # (3, L)
+    u0_pad = torch.zeros((3, sp.L_pad), dtype=dt, device=dev)
+    u0_pad[:, :L] = u0
+    br = bc - schur_cuda.apply_b(sp, Wp, u0_pad, C)
+    # block-Jacobi preconditioner on the true Schur diagonal
+    # M_c = Hcc_c - sum_{o in c} W_o Hll^-1[l(o)] W_o^T (camera-major)
+    G = Hll_inv.permute(1, 2, 0)[:, :, lm_idx]                         # (3, 3, O)
+    WG = sum(Wcl_t[:, j][:, None] * G[j][None] for j in range(3))      # (6, 3, O)
+    del G
+    S66 = sum(WG[:, k][:, None] * Wcl_t[:, k][None] for k in range(3))  # (6, 6, O)
+    del WG, Wcl_t
+    S_diag = Hcc_d - _cam_sum_t(S66, C, seg).permute(2, 0, 1)
+    del S66
+    M_inv = ba_core.inv66_spd(S_diag + 1e-6 * eye6)
+    gnorm = torch.linalg.norm(br)
+    g0 = torch.where(g0 > 0, g0, gnorm)
+    dc = _pcg(matvec, br, M_inv, pcg_iters, rtol=_ew_rtol(gnorm, g0, C))
+    dc = torch.where(fixed_cam[:, None], torch.zeros_like(dc), dc)
+
+    # ---- landmark back-substitution: dl = u0 - Hll^-1 segsum(W^T dc) ----
+    a_dc = schur_cuda.apply_a(sp, Wp, dc.contiguous(), H9)[:, :L]
+    dl = (u0 - a_dc).T
+    dl = torch.where(fixed_lm[:, None], torch.zeros_like(dl), dl)
+
+    # ---- accept / reject ----------------------------------------------
+    T_new = ba_core.apply_pose_update(Tcw, dc, mask=~fixed_cam)
+    X_new = Xw + dl
+    cost_new = _robust_cost(_cm_chi2(T_new, X_new, uv_t, inv_sigma2, lm_idx, K, seg)[0], valid)
+    accept = cost_new < cost
+    state = (torch.where(accept, T_new, Tcw), torch.where(accept, X_new, Xw),
+             torch.where(accept, torch.clamp_min(lam * 0.5, 1e-8),
+                         torch.clamp_max(lam * 4.0, 1e4)),
+             g0)
+    return state, cost_new
+
+
+def _cm_chi2(Tcw, Xw, uv_t, inv_sigma2, lm_idx, K, seg: int):
+    """chi2 (O,) and the depth test of the camera-major stream at a state."""
+    R_t = _rep_cam(Tcw[:, :3, :3].permute(1, 2, 0), seg)
+    t_t = _rep_cam(Tcw[:, :3, 3].T, seg)
+    pc = (R_t * Xw.T[:, lm_idx][None]).sum(1) + t_t
+    depth_ok = pc[2] > 1e-6
+    z = torch.where(depth_ok, pc[2], torch.ones_like(pc[2]))
+    r = uv_t - torch.stack([K[0, 0] * pc[0] / z + K[0, 2], K[1, 1] * pc[1] / z + K[1, 2]])
+    return torch.sum(r * r, 0) * inv_sigma2, depth_ok
+
+
+def make_matrix_free_gba(iterations: int = 5, pcg_iters: int = 25):
+    """Single-device dual-layout matrix-free GBA (``_gba_iteration_cm``).
+
+    Returns ``gba(Tcw, Xw, obs, K, fixed_cam, fixed_lm, n_iterations=None)
+    -> BAResult``. Needs camera-major contiguous observations (O = C * F),
+    which is what ``map_state.gather_observations`` gives; raises
+    ValueError on any other stream. The plan is
+    built on the host once per problem and cached by the identity of the
+    observations' ``lm_idx``, ``cam_idx`` and ``valid`` tensors (strong
+    references, so a recycled id() cannot alias a stale plan): the plan
+    leaves invalid observations out, so a changed mask needs a new plan.
+    """
+    plan_cache: list = [None]
+
+    def gba(Tcw, Xw, obs: ba_core.BAObservations, K, fixed_cam, fixed_lm,
+            n_iterations=None) -> BAResult:
+        C, L = int(Tcw.shape[0]), int(Xw.shape[0])
+        ent = plan_cache[0]
+        if (ent is None or ent[0] is not obs.lm_idx or ent[1] is not obs.cam_idx
+                or ent[2] != (C, L) or ent[3] is not obs.valid):
+            ent = (obs.lm_idx, obs.cam_idx, (C, L), obs.valid,
+                   build_matrix_free_plan(obs, C, L))
+            plan_cache[0] = ent
+        mp = ent[4]
+        n_it = iterations if n_iterations is None else int(n_iterations)
+        dev = Tcw.device
+        uv_t = obs.uv.T.contiguous()
+        # loop-invariant tile-order streams (pad slots read the appended
+        # zero / False column and carry zero weight)
+        uv_s = torch.cat([uv_t, torch.zeros((2, 1), dtype=uv_t.dtype, device=dev)], 1)[
+            :, mp.to_orig]
+        is2_s = torch.cat([obs.inv_sigma2, torch.zeros(1, dtype=obs.inv_sigma2.dtype,
+                                                       device=dev)])[mp.to_orig]
+        valid_s = torch.cat([obs.valid, torch.zeros(1, dtype=torch.bool, device=dev)])[
+            mp.to_orig]
+        lm_idx = torch.where(obs.valid, obs.lm_idx, torch.zeros_like(obs.lm_idx))
+        state = (Tcw, Xw, torch.tensor(1e-4, dtype=torch.float32, device=dev),
+                 torch.tensor(-1.0, dtype=torch.float32, device=dev))
+        for _ in range(n_it):
+            state, _cost = _gba_iteration_cm(state, K, fixed_cam, fixed_lm, pcg_iters,
+                                             uv_t, obs.inv_sigma2, obs.valid, lm_idx,
+                                             uv_s, is2_s, valid_s, mp)
+        Tcw_o, Xw_o = state[0], state[1]
+        # final inlier classification
+        chi2, depth_ok = _cm_chi2(Tcw_o, Xw_o, uv_t, obs.inv_sigma2, lm_idx, K, mp.seg)
+        inlier = obs.valid & (chi2 <= ba_core.CHI2_MONO) & depth_ok
+        return BAResult(Tcw=Tcw_o, Xw=Xw_o, obs_inlier=inlier,
+                        cost=_robust_cost(chi2, inlier))
 
     return gba

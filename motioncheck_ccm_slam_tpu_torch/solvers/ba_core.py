@@ -4,8 +4,9 @@ Counterpart of ``motioncheck_ccm_slam_tpu/solvers/ba_core.py``. The problem
 is flat structure-of-arrays: poses Tcw (C, 4, 4), landmarks Xw (L, 3) and
 observations (``BAObservations``); invalid slots carry zero weight.
 Per-entity reductions are scatter-adds (``index_add_``); the JAX package's
-gather-based segment plans exist for the TPU's serialised scatters and are
-not carried over.
+gather-based segment plans (``SegmentPlan``) exist for the TPU's serialised
+scatters and are not carried over. ``SortedSegments``, the landmark sort
+order of the matrix-free GBA, is a host-side numpy plan.
 
 Perturbation convention: left-multiplicative se3, xi = (omega, upsilon),
 Tcw <- exp(xi) @ Tcw (matches ops/lie.py).
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..ops import lie
@@ -28,6 +30,24 @@ class BAObservations(NamedTuple):
     uv: torch.Tensor          # (O, 2) f32
     inv_sigma2: torch.Tensor  # (O,) f32
     valid: torch.Tensor       # (O,) bool
+
+
+class SortedSegments(NamedTuple):
+    """Segment reduction over observations pre-sorted by segment id:
+    ``order`` permutes observations into sorted order once per problem;
+    segment s occupies sorted positions [bounds[s], bounds[s+1])."""
+
+    order: np.ndarray    # (O,) i64 permutation sorting obs by segment id
+    bounds: np.ndarray   # (N+1,) i64 segment boundaries in sorted order
+
+
+def build_sorted_segments(idx, n: int) -> SortedSegments:
+    """Host-side plan (numpy) for segment ids ``idx`` in [0, n)."""
+    idx = np.asarray(idx, np.int64)
+    order = np.argsort(idx, kind="stable")
+    bounds = np.zeros(n + 1, np.int64)
+    bounds[1:] = np.cumsum(np.bincount(idx, minlength=n))
+    return SortedSegments(order=order, bounds=bounds)
 
 
 def reproject_residuals(Tcw, Xw, obs: BAObservations, K):

@@ -59,8 +59,11 @@ def _solve_schur(Hcc, bc, Hll, bl, Wcl, cam_idx, lm_idx, lam, fixed_cam):
     S = torch.block_diag(*Hcc_d) - Y @ W.T
     br = bc.reshape(-1) - Y @ bl.reshape(-1)
     Sd = S + 1e-7 * torch.eye(C * 6, dtype=dt, device=dev)
-    chol = torch.linalg.cholesky(Sd)
+    # a failed factorisation gives a NaN step, as the JAX package's
+    # cho_factor does: the LM gate then rejects it and raises the damping
+    chol, info = torch.linalg.cholesky_ex(Sd)
     dc_flat = torch.cholesky_solve(br[:, None], chol)[:, 0]
+    dc_flat = torch.where(info == 0, dc_flat, torch.full_like(dc_flat, float("nan")))
     dc = torch.where(fixed_cam[:, None], torch.zeros_like(bc), dc_flat.reshape(C, 6))
     # back-substitute landmarks: dl = Hll^-1 (bl - W^T dc)
     dc_free = torch.where(fixed_rows, torch.zeros_like(dc_flat), dc_flat)

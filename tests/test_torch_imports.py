@@ -46,7 +46,8 @@ def test_port_imports_no_jax_and_no_triton():
             "ops.cuda_build", "ops.fast_cuda", "ops.schur_cuda", "ops.orb",
             "ops.matching", "solvers.ba_core", "solvers.pose_opt",
             "solvers.local_ba", "models.map_state", "models.frame",
-            "models.tracking", "parallel.sharded_ba")
+            "models.tracking", "models.motion_check", "models.gba",
+            "parallel.sharded_ba")
     }
     assert expected <= set(out["modules"]), expected - set(out["modules"])
     assert out["jax"] == []
@@ -71,7 +72,9 @@ def test_config_copy_matches_jax_package(name):
 
 def test_entry_points_default_to_the_card():
     """The port runs on the card unless the caller asks for the CPU."""
-    for fn in (tentry.entry, tentry.gba_entry, tmap.empty_mp_block):
+    for fn in (tentry.entry, tentry.gba_entry, tentry.matrix_free_gba_entry,
+               tentry.server_gba_entry, tentry.gba_problem, tentry.server_map,
+               tmap.empty_mp_block, tmap.empty_kf_block, tmap.MapState.create):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
     t = ttrack.Tracker(config=tconfig.DEFAULT_CONFIG, map=None)
     assert t.device == torch.device("cuda")

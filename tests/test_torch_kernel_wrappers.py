@@ -1,5 +1,6 @@
 """The kernel wrappers of the torch port (ops/fast_cuda.py: K1/K2,
-ops/schur_cuda.py: K3-K7): routing, argument checks and launch counting.
+ops/schur_cuda.py: K3-K9 and the plan-form apply_a / apply_b /
+schur_apply): routing, argument checks and launch counting.
 
 A CPU tensor runs the plain version and counts no launch; a malformed
 argument raises. The tests marked ``cuda`` need an NVIDIA GPU and skip
@@ -10,7 +11,9 @@ contraction); K3-K7 relative to each output's max-abs within 1e-4 (sums
 of ~30 terms taken by atomics in no fixed order, FMA contraction), and
 within 1e-3 for what is computed from residuals (rho, chi2, bl, bc: a
 residual is ~1e3 times smaller than the projection it is taken from, so
-one ulp there is ~1e-4 of it).
+one ulp there is ~1e-4 of it); K8 within 1e-5 relative (the same per-slot
+cost summed in another order); K9 bitwise (it moves data); the plan-form
+products within 1e-4 of each output's max-abs, as K6/K7.
 """
 import types
 
@@ -132,7 +135,7 @@ def _gba_inputs(device, seed=0, C=130, L=300, O=4000):
     st = sharded_ba.tile_streams(tp, obs, K_t, fc, fl_pad)
     X = torch.cat([Xw_t, torch.zeros((tp.L_pad - L, 3), device=device)])
     d1_args = (tp.camid, tp.lmloc, st.uv, st.is2, st.valid, st.free, st.kp,
-               sharded_ba._pose_table(Tcw_t), X)
+               schur_cuda.pose_table(Tcw_t), X)
     W18 = schur_cuda.d1_assemble_ref(*d1_args, TP=tp.TP)[0]
     Q = rng.normal(0, 0.05, (tp.L_pad, 3, 3)).astype(np.float32)
     H = np.eye(3, dtype=np.float32) * rng.uniform(0.2, 2.0, (tp.L_pad, 1, 1)) \
@@ -212,3 +215,86 @@ def test_gba_kernels_match_plain_versions_on_card(cuda_device):
         assert _relmax(hllbl[:9], rh[:9]) < 1e-4 and _relmax(hllbl[9:], rh[9:]) < 1e-3
         assert _relmax(cam27[:, :21], rc[:, :21]) < 1e-4
         assert _relmax(cam27[:, 21:], rc[:, 21:]) < 1e-3
+
+
+# ---------------------------------------------------------------------------
+# K8, K9 and the plan-form products of the matrix-free GBA
+# ---------------------------------------------------------------------------
+
+PLAN_KERNELS = ("d0_cost", "expand_sorted_streams", "apply_a", "apply_b", "schur_apply")
+
+
+def _plan_calls(g):
+    """name -> args of each of K8, K9 and the plan-form products; the tile
+    plan serves as the Schur plan (it carries camid, lmloc, TP, ntl,
+    L_pad on the device)."""
+    tp, C = g["tp"], g["C"]
+    camid, lmloc, uv, is2, valid, _free, kp, pose, X = g["d1_args"]
+    Tcw = torch.eye(4, device=pose.device).repeat(C, 1, 1)
+    Tcw[:, :3, :3] = pose[:, :9].reshape(C, 3, 3)
+    Tcw[:, :3, 3] = pose[:, 9:]
+    return {
+        "d0_cost": ((camid, lmloc, uv, is2, valid, kp, pose, X), {"TP": tp.TP}),
+        "expand_sorted_streams": ((tp, Tcw, X[:g["L"]].contiguous()), {}),
+        "apply_a": ((tp, g["W18"], g["v"], g["H9"]), {}),
+        "apply_b": ((tp, g["W18"], g["u"], C), {}),
+        "schur_apply": ((tp, g["W18"], g["v"], g["H9"]), {}),
+    }
+
+
+def test_plan_wrappers_route_cpu_tensors_to_plain_versions():
+    g = _gba_inputs("cpu")
+    g["L"] = 300
+    for name, (args, kw) in _plan_calls(g).items():
+        fn, ref = getattr(schur_cuda, name), getattr(schur_cuda, name + "_ref")
+        n = fn.launches
+        out, want = fn(*args, **kw), ref(*args, **kw)
+        for a, b in zip(out if isinstance(out, tuple) else (out,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(a, b), name
+        assert fn.launches == n, name
+    # K8 is the sum of K3's per-slot robust cost
+    aux = schur_cuda.d1_assemble_ref(*g["d1_args"], TP=g["tp"].TP)[1]
+    assert float(schur_cuda.d0_cost(*_plan_calls(g)["d0_cost"][0], TP=g["tp"].TP)) \
+        == float(aux[0].sum())
+
+
+@pytest.mark.parametrize("bad", ["numpy_plan", "short_Xw", "Wp_shape", "kp_int"])
+def test_plan_wrappers_reject_malformed_input(bad):
+    g = _gba_inputs("cpu", C=8, L=40, O=300)
+    g["L"] = 40
+    calls = _plan_calls(g)
+    tp = g["tp"]
+    with pytest.raises((TypeError, ValueError)):
+        if bad == "numpy_plan":
+            plan = tp._replace(camid=tp.camid.numpy(), lmloc=tp.lmloc.numpy())
+            schur_cuda.schur_apply(plan, g["W18"], g["v"], g["H9"])
+        elif bad == "short_Xw":
+            _, Tcw, X = calls["expand_sorted_streams"][0]
+            schur_cuda.expand_sorted_streams(tp, Tcw, X[:-schur_cuda.LM_BLOCK].contiguous())
+        elif bad == "Wp_shape":
+            schur_cuda.apply_a(tp, g["W18"][:, :-128].contiguous(), g["v"], g["H9"])
+        else:
+            args = list(calls["d0_cost"][0])
+            args[5] = args[5].to(torch.int32)
+            schur_cuda.d0_cost(*args, TP=tp.TP)
+
+
+@pytest.mark.cuda
+def test_plan_kernels_match_plain_versions_on_card(cuda_device):
+    g = _gba_inputs(cuda_device)
+    g["L"] = 300
+    for name, (args, kw) in _plan_calls(g).items():
+        fn, ref = getattr(schur_cuda, name), getattr(schur_cuda, name + "_ref")
+        n = fn.launches
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        assert fn.launches == n + 1, name
+        want = ref(*args, **kw)
+        if name == "expand_sorted_streams":
+            for a, b in zip(out, want):
+                assert torch.equal(a, b)
+        elif name == "d0_cost":
+            assert abs(float(out) - float(want)) <= 1e-5 * float(want)
+        else:
+            assert _relmax(out, want) < 1e-4, name

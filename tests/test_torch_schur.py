@@ -164,7 +164,7 @@ def test_d1_assemble_matches_jax(scene):
     tp, st, C = scene["tp_t"], scene["st"], scene["C"]
     W18, aux, hllbl, cam27 = schur_cuda.d1_assemble_ref(
         tp.camid, tp.lmloc, st.uv, st.is2, st.valid, st.free, st.kp,
-        tsb._pose_table(scene["Tcw"]), scene["Xw_pad"], TP=tp.TP)
+        schur_cuda.pose_table(scene["Tcw"]), scene["Xw_pad"], TP=tp.TP)
     jW, jaux, jhll, jacc = scene["d1"]
     assert _relerr(W18, jW) < SLOT_TOL
     assert _relerr(aux[0], jaux[0]) < RESIDUAL_TOL
