@@ -30,7 +30,11 @@ The server's tile-stream GBA at the operating point of bench.py:bench_gba
    K5 = K6 = K7 = 10, K4 >= 10;
 10. LM iterations/s on bench_gba's exact problem (1-iteration warm-up,
     then 10 iterations), each of K3-K7 alone against its plain version, its
-    bound and a library call, and a torch.profiler split of one iteration.
+    bound and a library call; K4's and K7's launch geometry; K4, K7 and the
+    plan-form apply_b and schur_apply at the edge shapes of EDGE_CASES (C
+    up to 12,000, TP from 128 to 25,600, a tile of pad slots only), each
+    called twice, within 1e-4 of max-abs of the plain version and of each
+    other; and a torch.profiler split of one iteration.
 
 The dual-layout matrix-free GBA on the same problem (entry.
 matrix_free_gba_entry; its plan has the tile plan's 2,162,688 slots):
@@ -127,18 +131,35 @@ REPLACES = {
 GBA_KERNELS = ("d1_assemble", "s_apply", "d2_precond", "apply_a_raw", "apply_b_raw")
 # the matrix-free GBA's kernels (K8 prices its states; it is on no solver path)
 MF_KERNELS = ("expand_sorted_streams", "apply_a", "apply_b", "schur_apply")
-# each wrapper's __global__ function in csrc/schur.cu, as the profiler names it
+# each wrapper's __global__ function in csrc/schur.cu, as the profiler names it;
+# camera_sum_kernel is K4's and K7's finishing pass
 KERNEL_SYMBOL = {"d1_assemble": "d1_assemble_kernel", "s_apply": "s_apply_kernel",
                  "d2_precond": "d2_precond_kernel", "apply_a_raw": "apply_a_kernel",
-                 "apply_b_raw": "apply_b_kernel"}
+                 "apply_b_raw": "apply_b_kernel", "k4_k7_finish": "camera_sum_kernel"}
 # the matrix-free GBA's kernels by CUDA name: apply_a_kernel (K6) runs for
-# apply_a and for each schur_apply, apply_b_kernel (K7) for apply_b and each
-# schur_apply
-MF_SYMBOL = {"K9": "expand_streams_kernel", "K6": "apply_a_kernel", "K7": "apply_b_kernel"}
+# apply_a and for each schur_apply, apply_b_kernel (K7) and its finishing
+# pass for apply_b and each schur_apply
+MF_SYMBOL = {"K9": "expand_streams_kernel", "K6": "apply_a_kernel", "K7": "apply_b_kernel",
+             "K7_finish": "camera_sum_kernel"}
 # the driver phase: a band of client 0's keyframes kicked sideways by a
 # corrupted GBA, and the outcome bounds of tests/test_mc_gating.py
 KICK_SLOTS = range(200, 264)
 MC_ATE_RATIO, NO_MC_MIN_ATE_M = 0.1, 0.3
+
+
+# K4's and K7's edge shapes: (name, C, L, observations a landmark, observed
+# landmark tiles or None for all). C = 5, 130, 2048 and 12,000 (whose (C, 6)
+# camera table fits no block's shared memory: both kernels split the
+# cameras into ranges, and K4 gathers v from L2); TP = 128, 4224 and 25,600
+# (a tile too wide for 8 blocks to stage: K4 reads part of it twice); a
+# tile of pad slots only.
+EDGE_CASES = (
+    ("c5_tp128", 5, 300, 1, None),
+    ("c130_tp128_pad_tile", 130, 384, 1, (0, 2)),
+    ("c2048_tp4224", 2048, 256, 33, None),
+    ("c12000_tp4224", 12000, 256, 33, None),
+    ("c2048_tp25600", 2048, 200, 200, None),
+)
 
 
 def check(cond, msg: str) -> None:
@@ -379,6 +400,80 @@ def k2_library_weight(device):
     return w, r
 
 
+def edge_case(C: int, L: int, per_lm: int, tiles, device, seed: int = 0):
+    """A K4 / K7 problem from a numpy seed: each observed landmark (those
+    of ``tiles``, or all L) seen by per_lm distinct random cameras, in the
+    plan of ``schur_cuda.build_schur_plan`` (so TP = 128 per_lm); a random
+    W stream, zero at pad slots and at 10% of the others; an SPD Hll^-1
+    (H9); a v and a u. Returns (plan on the device, W18, H9, v, u)."""
+    from motioncheck_ccm_slam_tpu_torch.ops import schur_cuda
+
+    rng = np.random.default_rng(seed)
+    lms = np.arange(L) if tiles is None else np.concatenate(
+        [np.arange(t * 128, min(L, (t + 1) * 128)) for t in tiles])
+    cam = np.concatenate([np.sort(rng.choice(C, per_lm, replace=False)) for _ in lms])
+    plan = schur_cuda.build_schur_plan(np.repeat(lms, per_lm), cam, L)
+    OP = plan.ntl * plan.TP
+    W = rng.normal(0, 1, (18, OP)).astype(np.float32)
+    W[:, (plan.perm == cam.shape[0]) | (rng.uniform(size=OP) < 0.1)] = 0.0
+    Q = rng.normal(0, 0.05, (plan.L_pad, 3, 3))
+    H = np.eye(3) * rng.uniform(0.2, 2.0, (plan.L_pad, 1, 1)) + Q @ Q.transpose(0, 2, 1)
+    H9 = np.ascontiguousarray(H.reshape(-1, 9).T)
+    v = rng.normal(0, 1, (C, 6))
+    u = rng.normal(0, 1, (3, plan.L_pad))
+    return (plan.to(device),) + tuple(torch.from_numpy(a.astype(np.float32)).to(device)
+                                      for a in (W, H9, v, u))
+
+
+def edge_products(device) -> dict:
+    """K4, K7 and the plan-form apply_b and schur_apply against their plain
+    versions at EDGE_CASES' shapes, each called twice: both calls within
+    SUM_RTOL of the plain version's max-abs, and of each other. Returns
+    case -> (K4's geometry, K7's geometry, name -> worst relative error)."""
+    from motioncheck_ccm_slam_tpu_torch.ops import schur_cuda
+
+    out = {}
+    for name, C, L, per_lm, tiles in EDGE_CASES:
+        plan, W, H9, v, u = edge_case(C, L, per_lm, tiles, device)
+        ids = (plan.camid, plan.lmloc, W)
+        calls = {
+            "s_apply": (lambda: schur_cuda.s_apply(*ids, v, H9, TP=plan.TP),
+                        lambda: schur_cuda.s_apply_ref(*ids, v, H9, TP=plan.TP)),
+            "apply_b_raw": (lambda: schur_cuda.apply_b_raw(*ids, u, C, TP=plan.TP),
+                            lambda: schur_cuda.apply_b_raw_ref(*ids, u, C, TP=plan.TP)),
+            "apply_b": (lambda: schur_cuda.apply_b(plan, W, u, C),
+                        lambda: schur_cuda.apply_b_ref(plan, W, u, C)),
+            "schur_apply": (lambda: schur_cuda.schur_apply(plan, W, v, H9),
+                            lambda: schur_cuda.schur_apply_ref(plan, W, v, H9)),
+        }
+        errs = {}
+        for k, (kern, plain) in calls.items():
+            a, b = kern(), kern()
+            ref = plain()
+            torch.cuda.synchronize()
+            errs[k] = max(relmax(a, ref), relmax(b, ref), relmax(a, b))
+            check(bool(a.isfinite().all()) and errs[k] <= SUM_RTOL,
+                  f"{k} at edge shape {name} off its plain version or its own second "
+                  f"call by {errs[k]:.3g} > {SUM_RTOL}")
+        geo = tuple(schur_cuda.launch_geometry(k, C, plan.TP, plan.ntl, device)
+                    for k in ("s_apply", "apply_b"))
+        out[name] = (geo[0], geo[1], errs)
+        print(f"phase 10 edge shape {name}: C={C} TP={plan.TP} ntl={plan.ntl}; K4 cluster "
+              f"{geo[0].cluster}, staged {geo[0].staged} of {geo[0].share} slots a rank, "
+              f"v in shared memory {geo[0].v_shared}, "
+              f"{geo[0].ranges} camera range(s), {geo[0].shared_bytes} B; K7 "
+              f"{geo[1].ranges} camera range(s); worst relative error "
+              + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()))
+    # every way K4 stages: v in shared memory or not, a tile whole or in
+    # part; both kernels' camera ranges
+    ways = {(g4.v_shared, g4.staged == g4.share) for g4, _, _ in out.values()}
+    want = {(True, True), (False, True), (False, False)}
+    check(ways >= want, f"the edge shapes miss K4's staging {sorted(want - ways)}")
+    g4, g7, _ = out["c12000_tp4224"]
+    check(g4.ranges > 1 and g7.ranges > 1, "C = 12,000 did not split the camera tables")
+    return out
+
+
 def perturbed_state(Tcw, Xw, seed: int = 1):
     """Cameras 1.. moved by se3 noise of 0.005 rad / 0.04 m, points by 0.05 m
     (as tests/test_tile_gba._perturbed), from a numpy seed."""
@@ -598,7 +693,9 @@ def gba_phases(device, smi: str, schur_log: str) -> dict:
     # weight is non-zero (projection and robust weight ~43, Jacobians ~38,
     # W 73, Hll + bl 60, Hcc + bc 135) and ~150 elsewhere (no sums); K4 72
     # (A's stage 36, B's 36) on a slot with a non-zero W row, plus 15 a
-    # landmark solve; K5 216; K6 and K7 36
+    # landmark solve; K5 216; K6 and K7 36. K4 reads each slot once (its
+    # cluster stages the tile); the partial camera sums that K4 and K7 write
+    # and add again are their own scratch, not counted
     # K3 reads ids, uv, is2, valid and the free flag of a valid slot (28 B)
     # and only valid of a pad or invalid slot, and writes W and aux (84 B)
     # for every slot
@@ -640,6 +737,15 @@ def gba_phases(device, smi: str, schur_log: str) -> dict:
           f"{records['apply_b_raw']['library_ms']:.4f} ms")
     for n in GBA_KERNELS:
         records[n]["launches"] = launches[n]
+
+    # K4's and K7's launch geometry at these shapes; both at the edge shapes
+    geo4 = schur_cuda.launch_geometry("s_apply", C, TP, tp.ntl, device)
+    geo7 = schur_cuda.launch_geometry("apply_b", C, TP, tp.ntl, device)
+    print(f"phase 10 K4 geometry {geo4._asdict()}, "
+          f"{schur_cuda.s_apply_active_clusters(geo4.cluster, geo4.shared_bytes)} clusters "
+          f"resident at once; "
+          f"K7 geometry {geo7._asdict()}")
+    gba["edge_shapes"] = {name: errs for name, (_, _, errs) in edge_products(device).items()}
 
     # torch.profiler splits of a 10-iteration call from each state (after one
     # profile that is thrown away: the profiler's first use starts its tracer)

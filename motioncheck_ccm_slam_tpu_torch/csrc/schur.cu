@@ -14,18 +14,23 @@
 //
 // Layout. Observations lie in landmark-aligned tiles: tile t holds the
 // (padded) slots of landmarks [128t, 128t+128), TP slots a tile, OP = ntl*TP
-// slots in all. Every slot has a camera id and a tile-local landmark id. One
-// block runs one tile; its threads stride over the tile's slots.
+// slots in all. Every slot has a camera id and a tile-local landmark id.
+// K3, K5, K6, K8: one block runs one tile; its threads stride over the
+// tile's slots. K4 and K7 run persistent grids, described at each kernel.
 //
 // - Camera-side inputs (the (C,12) pose table, the (C,6) vector v) are read
 //   in f32 through the read-only cache. The Pallas kernels expanded them with
 //   one-hot MXU products of bf16 splits; here the gather is native and exact.
 // - Landmark-side sums (Hll+bl, W^T v) go into shared memory: a tile owns its
 //   128 landmarks, so these need no global atomics and no second pass.
-// - Camera-side sums (Hcc+bc, the Schur products, the preconditioner) go by
-//   atomicAdd into (C,27) / (C,6) / (C,21) outputs that the wrapper zeroes.
-//   Atomics sum in no fixed order, so these outputs differ from run to run in
-//   the last bits of f32; the tests hold them to a relative tolerance.
+// - Camera-side sums of K3 and K5 (Hcc+bc, the preconditioner) go by
+//   atomicAdd into (C,27) / (C,21) outputs that the wrapper zeroes. K4's and
+//   K7's (the Schur products) go into a camera table in each block's shared
+//   memory, flushed once a block and summed in block order by a finishing
+//   pass (see "The camera reduction"): no global atomic per slot. Shared
+//   atomics still sum in no fixed order, so all these outputs differ from
+//   run to run in the last bits of f32; the tests hold them to a relative
+//   tolerance.
 // - A slot whose weight is zero (a pad slot, an invalid observation, a point
 //   behind the camera, or a fixed entity in the W stream) adds exact zeros,
 //   so it is skipped before any atomic: pad slots all name camera 0, and
@@ -35,16 +40,23 @@
 // 28 and writes 84 bytes a slot, K4-K7 read the 72-byte W row plus 8 bytes of
 // ids, K8 reads 24 bytes, K9 reads 8 and writes 60) with 0-350 flops a slot,
 // under the f32 ridge of ~20 flop/byte, so all seven are bounded by memory
-// traffic. K4 as written reads each slot's W row
-// and ids twice, once in each stage (a tile's W rows do not fit in shared
-// memory), so it cannot come closer than about twice its bound; the camera
-// atomics are the other risk of running far above it.
+// traffic. K4 stages each slot's W row and ids in its cluster's shared
+// memory, so it reads them once wherever a tile fits 8 blocks' shared memory
+// (TP up to ~19,000 slots at C = 2048). What keeps K4 and K7 above their
+// one-read bounds is said at each kernel: mostly the camera table's shared
+// atomics, which are compare-and-swap loops on this card, and for K4 the
+// barriers between a tile's phases; their finishing pass moves grid x C x
+// 24 bytes twice (6.3 MB at bench_gba's shapes).
 //
 // Each entry point launches on the stream it is given and returns
 // cudaGetLastError(); the Python wrapper raises when that is not 0.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -108,25 +120,121 @@ __device__ __forceinline__ void solve_stage(const float* __restrict__ H9,
   }
 }
 
-// Camera stage (the B half): out[cam][i] += sum_j W[i][j] u[j][l], with u
-// the tile's landmark vectors in shared memory, u_s[j*128 + l].
-__device__ __forceinline__ void b_stage(const int* __restrict__ camid,
-                                        const int* __restrict__ lmloc,
-                                        const float* __restrict__ W18, size_t OP,
-                                        int TP, const float* u_s,
-                                        float* __restrict__ out) {
-  const size_t base = static_cast<size_t>(blockIdx.x) * TP;
-  for (int k = threadIdx.x; k < TP; k += blockDim.x) {
-    const size_t s = base + k;
-    float w[18];
-    if (!load_w(W18, OP, s, w)) continue;
-    const int cam = camid[s], l = lmloc[s];
-    const float u0 = u_s[l], u1 = u_s[kLm + l], u2 = u_s[2 * kLm + l];
+// ---------------------------------------------------------------------------
+// The camera reduction of K4 and K7.
+// ---------------------------------------------------------------------------
+//
+// A block owns a table of cameras [c0, c0 + ncam) in dynamic shared memory,
+// 6 floats a camera. It adds the camera-side sums of every slot it handles
+// into that table by shared-memory atomics (the grids are persistent: a
+// block takes many tiles), then writes the table once, with plain stores, to
+// row blockIdx.x of a (grid.x, C, 6) partial buffer. Where one (C, 6) table
+// does not fit beside the rest of a block's shared memory, grid.y splits the
+// cameras into ranges of cam_range, and a block skips the slots of cameras
+// outside its range. camera_sum_kernel then adds the partial rows in block
+// order. No global atomic is taken per slot.
+
+__device__ __forceinline__ bool in_range(int cam, int c0, int ncam) {
+  return static_cast<unsigned>(cam - c0) < static_cast<unsigned>(ncam);
+}
+
+__device__ __forceinline__ void table_zero(float* table, int ncam) {
+  for (int i = threadIdx.x; i < ncam * 6; i += blockDim.x) table[i] = 0.0f;
+}
+
+// p[0] += a and p[1] += b as one 64-bit compare-and-swap loop (p 8-byte
+// aligned in shared memory). A shared-memory f32 atomicAdd is itself a
+// compare-and-swap loop on this card, so pairing halves the loops.
+__device__ __forceinline__ void atomic_add_pair(float* p, float a, float b) {
+  unsigned long long* q = reinterpret_cast<unsigned long long*>(p);
+  unsigned long long seen = *q, prev;
+  do {
+    prev = seen;
+    const float x = __uint_as_float(static_cast<unsigned>(prev)) + a;
+    const float y = __uint_as_float(static_cast<unsigned>(prev >> 32)) + b;
+    seen = atomicCAS(q, prev,
+                     (static_cast<unsigned long long>(__float_as_uint(y)) << 32)
+                         | __float_as_uint(x));
+  } while (seen != prev);
+}
+
+// table[cam - c0][i] += sum_j W[i][j] u_j, for a camera inside the range:
+// six f32 atomics (K7, whose loads they overlap), or three paired ones
+// (K4's B stage, which reads shared memory only and is bound by them).
+template <bool kPaired>
+__device__ __forceinline__ void table_add(float* table, int cam, int c0,
+                                          const float (&w)[18], float u0, float u1,
+                                          float u2) {
+  float* row = table + (cam - c0) * 6;
+  float o[6];
 #pragma unroll
-    for (int i = 0; i < 6; ++i) {
-      atomicAdd(out + cam * 6 + i, w[i] * u0 + w[6 + i] * u1 + w[12 + i] * u2);
+  for (int i = 0; i < 6; ++i) o[i] = w[i] * u0 + w[6 + i] * u1 + w[12 + i] * u2;
+  if (kPaired) {
+#pragma unroll
+    for (int i = 0; i < 6; i += 2) atomic_add_pair(row + i, o[i], o[i + 1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 6; ++i) atomicAdd(row + i, o[i]);
+  }
+}
+
+// The table to partial row blockIdx.x, cameras [c0, c0 + ncam) of C. Each
+// thread reads the entries that it zeroed itself, so the caller's last
+// __syncthreads() is the only barrier needed.
+__device__ __forceinline__ void table_flush(const float* table, int C, int c0, int ncam,
+                                            float* __restrict__ partial) {
+  float* dst = partial + (static_cast<size_t>(blockIdx.x) * C + c0) * 6;
+  for (int i = threadIdx.x; i < ncam * 6; i += blockDim.x) dst[i] = table[i];
+}
+
+constexpr int kSumCols = 32, kSumRows = 8;
+
+// The finishing pass: out[e] = sum_g partial[g][e], e < n = 6C. A block
+// takes 32 neighbouring entries; thread row r adds rows g = r, r+8, ... in
+// turn, then row 0 adds the 8 row sums. The order is fixed, so run-to-run
+// differences come only from the shared-memory atomics inside each block.
+__global__ void __launch_bounds__(kSumCols * kSumRows)
+camera_sum_kernel(const float* __restrict__ partial, int groups, size_t n,
+                  float* __restrict__ out) {
+  __shared__ float acc_s[kSumRows][kSumCols];
+  const size_t e = static_cast<size_t>(blockIdx.x) * kSumCols + threadIdx.x;
+  float acc = 0.0f;
+  if (e < n) {
+    for (int g = threadIdx.y; g < groups; g += kSumRows) acc += partial[g * n + e];
+  }
+  acc_s[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y == 0 && e < n) {
+    float sum = acc_s[0][threadIdx.x];
+#pragma unroll
+    for (int r = 1; r < kSumRows; ++r) sum += acc_s[r][threadIdx.x];
+    out[e] = sum;
+  }
+}
+
+// After this, the first lane of each run of equal keys among the warp's
+// lanes (neighbouring lanes, any key order) holds the run's sums of a, b, c.
+// Returns whether this lane is such a first lane.
+__device__ __forceinline__ bool warp_run_sum(int key, float& a, float& b, float& c) {
+  const unsigned all = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int up = __shfl_up_sync(all, key, 1);      // every lane takes part
+  const bool head = lane == 0 || up != key;
+  // the run's index: the heads at or below this lane
+  const int run = __popc(__ballot_sync(all, head) & ((2u << lane) - 1u));
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int ro = __shfl_down_sync(all, run, d);
+    const float ao = __shfl_down_sync(all, a, d);
+    const float bo = __shfl_down_sync(all, b, d);
+    const float co = __shfl_down_sync(all, c, d);
+    if (lane + d < 32 && ro == run) {
+      a += ao;
+      b += bo;
+      c += co;
     }
   }
+  return head;
 }
 
 // ---------------------------------------------------------------------------
@@ -267,23 +375,288 @@ d1_assemble_kernel(const int* __restrict__ camid, const int* __restrict__ lmloc,
 }
 
 // ---------------------------------------------------------------------------
-// K4: the fused PCG product, A's stage then B's, u kept in shared memory.
+// K4: the fused PCG product, each slot's W row and ids read once.
 // ---------------------------------------------------------------------------
+//
+// A thread-block cluster of k blocks runs a tile; the grid is persistent, so
+// cluster p of P takes the contiguous tiles [ntl p / P, ntl (p+1) / P). Rank
+// r of a cluster takes the tile's slots [r share, (r+1) share). Its first
+// `staged` slots (W rows, camera and landmark ids) and the tile's H9 come
+// into a stage buffer in shared memory by TMA bulk copies, one copy a warp
+// (29 of them), counted on an mbarrier; the next tile's copies start as
+// soon as the B stage is done with the buffer. Where it fits, each block
+// also keeps v (C, 6) in shared memory. Per tile:
+//
+// 1. A stage: W^T v[cam] of each of the rank's slots, from the buffer (a
+//    slot past the staging room, in a tile too wide for 8 blocks, from
+//    global memory), into the rank's u_part (3 x 128, two of them, one for
+//    odd tiles). Slots of one landmark are neighbours, so a warp first sums
+//    each run of one landmark (warp_run_sum) and the run's first lane takes
+//    the 3 shared atomics: they no longer serialise on one address across
+//    the ~30 slots of a landmark.
+// 2. cluster.sync(); every rank sums the k ranks' u_part in rank order
+//    through distributed shared memory and solves the tile's 128 3x3
+//    systems itself into its own u_s (the same bits on every rank). The
+//    u_part of the next tile is the other one, so one cluster barrier a
+//    tile is enough.
+// 3. B stage: W u[l] of the rank's slots, again from the buffer (the slots
+//    past the staging room are read from global memory a second time), into
+//    the block's camera table by paired compare-and-swap atomics.
+//
+// The wrapper (schur_cuda.camera_reduction_geometry) picks the smallest k
+// whose share of a tile fits beside the camera table, with v in shared
+// memory where that fits too (gathering v from L2 costs more than a smaller
+// cluster saves). Shared memory a block: 80 B a staged slot + 4,608 B of
+// H9 + 4,608 B of u_part and u_s + 24 B a camera for the table (and as
+// much again for v) + 8 B of mbarrier. At bench_gba's shapes (TP = 4224,
+// C = 2048): k = 3, 1408 slots a rank, v shared: 117,248 + 4,608 + 49,152
+// + 49,152 + 8 = 220,168 B of the 232,448 a block may have, one block an
+// SM, 39 clusters resident (117 SMs).
+//
+// Measured on NVIDIA H100 80GB HBM3 cards at 700.00 W (chip_smoke.py phase
+// 10 and tools/torch_schur_probe.py; each run's numbers in PERF.md): ~0.15
+// ms a call against a one-read byte bound of 0.0524 ms, about a third of
+// the bound's rate. Thread 0's cycles a tile: copy issue and zeroing
+// ~3,000, waiting for the buffer ~3,300, A stage 3,800-4,700, cluster
+// barrier ~2,100, solves ~900, B stage ~6,500. So what keeps it above its
+// bound: a block waits for each tile's copies (a second buffer does not
+// fit beside v and the table); its three phases are separated by barriers,
+// each a few latency-bound rounds of 32 warps (1408 slots are 44 warp
+// rounds); and the B stage's shared compare-and-swap atomics take the
+// largest share (with plain adds, a wrong result timed only, ~0.125 ms).
+// Gathering v from L2 instead, at k = 2 (the smallest cluster that stages
+// a tile, with no room for v), takes ~0.174 ms.
+constexpr int kSApplyThreads = 1024;
+constexpr int kStageSlotBytes = 80;                 // 18 W floats, camid, lmloc
+constexpr int kStageTileBytes = 9 * kLm * 4;        // the tile's H9
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Copies `bytes` (a multiple of 16, both addresses 16-byte aligned) from
+// global to shared memory; completion is counted on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// One stage buffer: w (18, staged), cam (staged,), lm (staged,), h (9, 128).
+struct Stage {
+  float* w;
+  int* cam;
+  int* lm;
+  float* h;
+};
+
+// load_w for slot j of the buffer: 32-bit shared-memory offsets.
+__device__ __forceinline__ bool load_staged_w(const Stage& st, int staged, int j,
+                                              float (&w)[18]) {
+  bool any = false;
+#pragma unroll
+  for (int r = 0; r < 18; ++r) {
+    w[r] = st.w[r * staged + j];
+    any |= w[r] != 0.0f;
+  }
+  return any;
+}
+
+__device__ __forceinline__ Stage stage_at(unsigned char* base, int staged) {
+  Stage st;
+  st.w = reinterpret_cast<float*>(base);
+  st.cam = reinterpret_cast<int*>(st.w + 18 * staged);
+  st.lm = st.cam + staged;
+  st.h = reinterpret_cast<float*>(st.lm + staged);
+  return st;
+}
+
+constexpr int kStageCopies = 29;    // 18 W rows, camera ids, landmark ids, 9 H9 rows
+
+// Thread 0, before a __syncthreads(): the bytes the next fill of the buffer
+// brings (n staged slots and the tile's H9), and its arrival on `bar`.
+__device__ __forceinline__ void stage_expect(uint64_t* bar, int n) {
+  const uint32_t tx = static_cast<uint32_t>(n) * kStageSlotBytes + kStageTileBytes;
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(tx) : "memory");
+}
+
+// After that __syncthreads(): lane 0 of warp c < kStageCopies issues copy c
+// of tile t's n staged slots from slot s0 and its H9 into `st`, so that no
+// warp is held up by more than one copy.
+__device__ __forceinline__ void stage_copy(const Stage& st, uint64_t* bar,
+                                           const int* __restrict__ camid,
+                                           const int* __restrict__ lmloc,
+                                           const float* __restrict__ W18,
+                                           const float* __restrict__ H9, size_t OP,
+                                           size_t L_pad, int staged, size_t s0, int n,
+                                           int t) {
+  const int c = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) != 0 || c >= kStageCopies) return;
+  if (c < 18) {
+    if (n > 0) bulk_copy(st.w + c * staged, W18 + c * OP + s0, n * 4, bar);
+  } else if (c < 20) {
+    if (n > 0) bulk_copy(c == 18 ? st.cam : st.lm, (c == 18 ? camid : lmloc) + s0, n * 4, bar);
+  } else {
+    bulk_copy(st.h + (c - 20) * kLm, H9 + (c - 20) * L_pad + static_cast<size_t>(t) * kLm,
+              kLm * 4, bar);
+  }
+}
+
+__global__ void __launch_bounds__(kSApplyThreads, 1)
 s_apply_kernel(const int* __restrict__ camid, const int* __restrict__ lmloc,
                const float* __restrict__ W18, const float* __restrict__ v,
-               const float* __restrict__ H9, int TP, size_t OP, size_t L_pad,
-               float* __restrict__ out) {
-  __shared__ float u_part[3 * kLm];
-  __shared__ float u_s[3 * kLm];
-  for (int i = threadIdx.x; i < 3 * kLm; i += blockDim.x) u_part[i] = 0.0f;
+               const float* __restrict__ H9, int ntl, int TP, size_t OP, size_t L_pad,
+               int C, int cam_range, int share, int staged, int v_shared,
+               float* __restrict__ partial) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int k = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int c0 = blockIdx.y * cam_range, ncam = min(cam_range, C - c0);
+  const Stage st = stage_at(smem, staged);
+  float* u_part0 = st.h + 9 * kLm;                                      // (2, 3, 128)
+  float* u_s = u_part0 + 6 * kLm;                                       // (3, 128)
+  float* table = u_s + 3 * kLm;                                         // (cam_range, 6)
+  float* v_s = table + cam_range * 6;                                   // (C, 6) or none
+  uint64_t* bar = reinterpret_cast<uint64_t*>(v_s + (v_shared ? C * 6 : 0));
+  const int parts = gridDim.x / k, p = blockIdx.x / k;
+  const int t0 = static_cast<int>(static_cast<long long>(ntl) * p / parts);
+  const int t1 = static_cast<int>(static_cast<long long>(ntl) * (p + 1) / parts);
+  const int k0 = min(rank * share, TP), k1 = min(k0 + share, TP);
+  const int ks = min(k1, k0 + staged);          // staged: [k0, ks); read twice: [ks, k1)
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    mbar_init(bar);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (t0 < t1) stage_expect(bar, ks - k0);
+  }
+  table_zero(table, ncam);
+  if (v_shared) {
+    for (int i = threadIdx.x; i < C * 6; i += blockDim.x) v_s[i] = v[i];
+  }
   __syncthreads();
-  a_stage(camid, lmloc, W18, v, OP, TP, u_part);
-  __syncthreads();
-  solve_stage(H9, L_pad, u_part, u_s, kLm);
-  __syncthreads();
-  b_stage(camid, lmloc, W18, OP, TP, u_s, out);
+  if (t0 < t1) {
+    stage_copy(st, bar, camid, lmloc, W18, H9, OP, L_pad, staged,
+               static_cast<size_t>(t0) * TP + k0, ks - k0, t0);
+  }
+  for (int t = t0, it = 0; t < t1; ++t, ++it) {
+    const size_t base = static_cast<size_t>(t) * TP;
+    float* up = u_part0 + (it & 1) * 3 * kLm;
+    for (int i = threadIdx.x; i < 3 * kLm; i += blockDim.x) up[i] = 0.0f;
+    __syncthreads();
+    mbar_wait(bar, static_cast<uint32_t>(it & 1));
+    // 1. A stage, whole warps at a time (warp_run_sum needs every lane)
+    for (int kw = k0 + (threadIdx.x & ~31); kw < k1; kw += blockDim.x) {
+      const int kk = kw + lane;
+      int key = -1 - lane;                      // a lane past the end: a run of its own
+      float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
+      if (kk < k1) {
+        int cam, l;
+        float w[18];
+        bool any;
+        if (kk < ks) {
+          const int j = kk - k0;
+          cam = st.cam[j];
+          l = st.lm[j];
+          any = load_staged_w(st, staged, j, w);
+        } else {
+          const size_t s = base + kk;
+          cam = camid[s];
+          l = lmloc[s];
+          any = load_w(W18, OP, s, w);
+        }
+        key = l;
+        if (any) {
+          float vc[6];
+          if (v_shared) {
+#pragma unroll
+            for (int i = 0; i < 6; ++i) vc[i] = v_s[cam * 6 + i];
+          } else {
+#pragma unroll
+            for (int i = 0; i < 6; ++i) vc[i] = __ldg(v + cam * 6 + i);
+          }
+          float acc[3];
+#pragma unroll
+          for (int j = 0; j < 3; ++j) {
+            acc[j] = w[j * 6] * vc[0];
+#pragma unroll
+            for (int i = 1; i < 6; ++i) acc[j] = acc[j] + w[j * 6 + i] * vc[i];
+          }
+          a0 = acc[0];
+          a1 = acc[1];
+          a2 = acc[2];
+        }
+      }
+      if (warp_run_sum(key, a0, a1, a2) && key >= 0
+          && (a0 != 0.0f || a1 != 0.0f || a2 != 0.0f)) {
+        atomicAdd(&up[key], a0);
+        atomicAdd(&up[kLm + key], a1);
+        atomicAdd(&up[2 * kLm + key], a2);
+      }
+    }
+    cluster.sync();
+    // 2. the tile's 3x3 solves, u_part summed over the ranks in rank order
+    for (int l = threadIdx.x; l < kLm; l += blockDim.x) {
+      float p0 = 0.0f, p1 = 0.0f, p2 = 0.0f;
+      for (int q = 0; q < k; ++q) {
+        const float* pq = cluster.map_shared_rank(up, q);
+        p0 += pq[l];
+        p1 += pq[kLm + l];
+        p2 += pq[2 * kLm + l];
+      }
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        u_s[i * kLm + l] = st.h[(i * 3) * kLm + l] * p0 + st.h[(i * 3 + 1) * kLm + l] * p1
+                           + st.h[(i * 3 + 2) * kLm + l] * p2;
+      }
+    }
+    __syncthreads();
+    // 3. B stage: staged slots from the buffer, the rest from global memory
+    for (int j = threadIdx.x; j < ks - k0; j += blockDim.x) {
+      const int cam = st.cam[j];
+      float w[18];
+      if (!in_range(cam, c0, ncam) || !load_staged_w(st, staged, j, w)) continue;
+      const int l = st.lm[j];
+      table_add<true>(table, cam, c0, w, u_s[l], u_s[kLm + l], u_s[2 * kLm + l]);
+    }
+    for (int kk = ks + threadIdx.x; kk < k1; kk += blockDim.x) {
+      const size_t s = base + kk;
+      const int cam = camid[s], l = lmloc[s];
+      float w[18];
+      if (!load_w(W18, OP, s, w) || !in_range(cam, c0, ncam)) continue;
+      table_add<true>(table, cam, c0, w, u_s[l], u_s[kLm + l], u_s[2 * kLm + l]);
+    }
+    const bool next = t + 1 < t1;
+    if (next && threadIdx.x == 0) stage_expect(bar, ks - k0);
+    __syncthreads();    // the buffer, u_s and the next u_part are free again
+    if (next) {
+      stage_copy(st, bar, camid, lmloc, W18, H9, OP, L_pad, staged, base + TP + k0, ks - k0,
+                 t + 1);
+    }
+  }
+  cluster.sync();       // no rank leaves while another may read its u_part
+  table_flush(table, C, c0, ncam, partial);
 }
 
 // ---------------------------------------------------------------------------
@@ -352,19 +725,43 @@ apply_a_kernel(const int* __restrict__ camid, const int* __restrict__ lmloc,
 // ---------------------------------------------------------------------------
 // K7: per-camera sum of W u[l].
 // ---------------------------------------------------------------------------
+//
+// One block an SM; block (x, y) takes the slots [OP x / X, OP (x+1) / X) of
+// the grid's X blocks along x, whatever tiles they lie in, and the cameras
+// of range y. A slot's u is gathered from the (3, L_pad) input through the
+// read-only cache (a tile's 128 landmarks are 1.5 KB). Each slot reads its
+// ids and W row in one go (20 independent loads), then adds W u into the
+// block's camera table (up to the whole 232,448 B a block may have: 9,685
+// cameras a range; 49,152 B at C = 2048), with plain f32 shared atomics,
+// which the next slots' loads overlap. On NVIDIA H100 80GB HBM3 cards at
+// 700.00 W (chip_smoke.py phase 10 and tools/torch_schur_probe.py; each
+// run's numbers in PERF.md): 0.085-0.089 ms against a byte bound of 0.0519
+// ms and ~0.164 ms for a CSR sparse product of the same W. Most of the gap
+// is the table's atomics (compare-and-swap loops on this card): with plain
+// adds (a wrong result, timed only) it runs ~0.07 ms; paired, as in K4,
+// ~0.09.
+constexpr int kApplyBThreads = 1024;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kApplyBThreads, 1)
 apply_b_kernel(const int* __restrict__ camid, const int* __restrict__ lmloc,
                const float* __restrict__ W18, const float* __restrict__ u,
-               int TP, size_t OP, size_t L_pad, float* __restrict__ out) {
-  __shared__ float u_s[3 * kLm];
-  const size_t lm0 = static_cast<size_t>(blockIdx.x) * kLm;
-  for (int i = threadIdx.x; i < 3 * kLm; i += blockDim.x) {
-    const int r = i / kLm, l = i % kLm;
-    u_s[i] = u[r * L_pad + lm0 + l];
+               int TP, size_t OP, size_t L_pad, int C, int cam_range,
+               float* __restrict__ partial) {
+  extern __shared__ __align__(16) float table[];
+  const int c0 = blockIdx.y * cam_range, ncam = min(cam_range, C - c0);
+  table_zero(table, ncam);
+  __syncthreads();
+  const size_t s0 = OP * blockIdx.x / gridDim.x, s1 = OP * (blockIdx.x + 1) / gridDim.x;
+  for (size_t s = s0 + threadIdx.x; s < s1; s += blockDim.x) {
+    const int cam = camid[s], l = lmloc[s];
+    float w[18];
+    if (!load_w(W18, OP, s, w) || !in_range(cam, c0, ncam)) continue;
+    const size_t lm = (s / TP) * kLm + l;
+    table_add<false>(table, cam, c0, w, __ldg(u + lm), __ldg(u + L_pad + lm),
+                     __ldg(u + 2 * L_pad + lm));
   }
   __syncthreads();
-  b_stage(camid, lmloc, W18, OP, TP, u_s, out);
+  table_flush(table, C, c0, ncam, partial);
 }
 
 // ---------------------------------------------------------------------------
@@ -442,6 +839,14 @@ expand_streams_kernel(const int* __restrict__ camid, const int* __restrict__ lml
 
 inline cudaStream_t as_stream(void* s) { return static_cast<cudaStream_t>(s); }
 
+// K4's and K7's finishing pass over their (groups, C, 6) partial rows.
+int camera_sum(const float* partial, int groups, int C, float* out, cudaStream_t stream) {
+  const size_t n = static_cast<size_t>(C) * 6;
+  const unsigned blocks = static_cast<unsigned>((n + kSumCols - 1) / kSumCols);
+  camera_sum_kernel<<<blocks, dim3(kSumCols, kSumRows), 0, stream>>>(partial, groups, n, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -466,15 +871,72 @@ int mcs_d1_assemble(const int* camid, const int* lmloc, const float* uv,
   return static_cast<int>(cudaGetLastError());
 }
 
-// v (C, 6) -> out (C, 6) (zeroed).
+// v (C, 6) -> out (C, 6). The launch geometry comes from the wrapper
+// (schur_cuda.camera_reduction_geometry): grid_x blocks in clusters of
+// `cluster`, ceil(C / cam_range) camera ranges along y, each rank `share`
+// slots of a tile of which it stages `staged`, v in shared memory if
+// v_shared, shared_bytes of dynamic shared memory a block; partial
+// (grid_x, C, 6) is scratch, written whole. camid, lmloc, W18 and H9 must be
+// 16-byte aligned (the bulk copies' rule).
 int mcs_s_apply(const int* camid, const int* lmloc, const float* W18,
-                const float* v, const float* H9, int ntl, int TP, float* out,
-                void* stream) {
-  if (ntl <= 0 || TP <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                const float* v, const float* H9, int ntl, int TP, float* out, int C,
+                int grid_x, int cluster, int cam_range, int share, int staged,
+                int v_shared, int shared_bytes, float* partial, void* stream) {
+  const long long need = static_cast<long long>(staged) * kStageSlotBytes + kStageTileBytes
+                         + 9LL * kLm * 4 + 24LL * cam_range + (v_shared ? 24LL * C : 0) + 8;
+  const bool aligned = ((reinterpret_cast<uintptr_t>(camid) | reinterpret_cast<uintptr_t>(lmloc)
+                         | reinterpret_cast<uintptr_t>(W18) | reinterpret_cast<uintptr_t>(H9))
+                        & 15u) == 0;
+  if (ntl <= 0 || TP <= 0 || TP % 128 || C <= 0 || cluster < 1 || cluster > 8
+      || grid_x < cluster || grid_x % cluster || cam_range <= 0 || share <= 0
+      || share % 32 || staged < 0 || staged % 32 || staged > share
+      || (v_shared != 0 && v_shared != 1) || shared_bytes < need || !aligned) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const size_t OP = static_cast<size_t>(ntl) * TP, L_pad = static_cast<size_t>(ntl) * kLm;
-  s_apply_kernel<<<ntl, kThreads, 0, as_stream(stream)>>>(
-      camid, lmloc, W18, v, H9, TP, OP, L_pad, out);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t e = cudaFuncSetAttribute(s_apply_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       shared_bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid_x, (C + cam_range - 1) / cam_range, 1);
+  cfg.blockDim = dim3(kSApplyThreads, 1, 1);
+  cfg.dynamicSmemBytes = shared_bytes;
+  cfg.stream = as_stream(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, s_apply_kernel, camid, lmloc, W18, v, H9, ntl, TP, OP,
+                         L_pad, C, cam_range, share, staged, v_shared, partial);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return camera_sum(partial, grid_x, C, out, as_stream(stream));
+}
+
+// How many of K4's clusters of `cluster` blocks with shared_bytes each can
+// be resident at once (cudaOccupancyMaxActiveClusters), or -cudaError_t.
+int mcs_s_apply_active_clusters(int cluster, int shared_bytes) {
+  cudaError_t e = cudaFuncSetAttribute(s_apply_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       shared_bytes);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, 1, 1);
+  cfg.blockDim = dim3(kSApplyThreads, 1, 1);
+  cfg.dynamicSmemBytes = shared_bytes;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, s_apply_kernel, &cfg);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
 // -> out (C, 21) (zeroed).
@@ -498,14 +960,27 @@ int mcs_apply_a(const int* camid, const int* lmloc, const float* W18,
   return static_cast<int>(cudaGetLastError());
 }
 
-// u (3, L_pad) -> out (C, 6) (zeroed).
+// u (3, L_pad) -> out (C, 6). grid_x blocks along x, ceil(C / cam_range)
+// camera ranges along y, shared_bytes = 24 cam_range; partial (grid_x, C, 6)
+// is scratch, written whole.
 int mcs_apply_b(const int* camid, const int* lmloc, const float* W18,
-                const float* u, int ntl, int TP, float* out, void* stream) {
-  if (ntl <= 0 || TP <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                const float* u, int ntl, int TP, float* out, int C, int grid_x,
+                int cam_range, int shared_bytes, float* partial, void* stream) {
+  if (ntl <= 0 || TP <= 0 || C <= 0 || grid_x <= 0 || cam_range <= 0
+      || shared_bytes < 24LL * cam_range) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const size_t OP = static_cast<size_t>(ntl) * TP, L_pad = static_cast<size_t>(ntl) * kLm;
-  apply_b_kernel<<<ntl, kThreads, 0, as_stream(stream)>>>(
-      camid, lmloc, W18, u, TP, OP, L_pad, out);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t e = cudaFuncSetAttribute(apply_b_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       shared_bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(grid_x, (C + cam_range - 1) / cam_range, 1);
+  apply_b_kernel<<<grid, kApplyBThreads, shared_bytes, as_stream(stream)>>>(
+      camid, lmloc, W18, u, TP, OP, L_pad, C, cam_range, partial);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return camera_sum(partial, grid_x, C, out, as_stream(stream));
 }
 
 // Arguments of mcs_d1_assemble without free -> out (0-d, zeroed) += sum rho.

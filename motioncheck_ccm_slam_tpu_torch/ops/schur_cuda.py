@@ -30,8 +30,10 @@ Each wrapper has a plain torch version beside it (``*_ref``: per-slot
 tensor arithmetic plus ``index_add_``). A CPU tensor goes to the plain
 version; a CUDA tensor launches the kernel or raises. ``launches`` on each
 wrapper counts kernel launches (never plain-version calls). Camera-side
-sums are taken by atomics in no fixed order, so kernel and plain version
-agree to f32 rounding of sums, not bitwise.
+sums are taken by atomics in no fixed order (K4 and K7: shared-memory
+atomics into a camera table in each block, whose rows a finishing pass
+adds in block order; ``camera_reduction_geometry`` sizes their launches),
+so kernel and plain version agree to f32 rounding of sums, not bitwise.
 """
 from __future__ import annotations
 
@@ -151,10 +153,11 @@ def _library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     return cuda_build.load(SOURCE, {
         "mcs_d1_assemble": [p] * 9 + [i, i] + [p] * 5,
-        "mcs_s_apply": [p] * 5 + [i, i, p, p],
+        "mcs_s_apply": [p] * 5 + [i, i, p] + [i] * 8 + [p, p],
+        "mcs_s_apply_active_clusters": [i, i],
         "mcs_d2_precond": [p] * 4 + [i, i, p, p],
         "mcs_apply_a": [p] * 5 + [i, i, p, p],
-        "mcs_apply_b": [p] * 4 + [i, i, p, p],
+        "mcs_apply_b": [p] * 4 + [i, i, p] + [i] * 4 + [p, p],
         "mcs_d0_cost": [p] * 8 + [i, i, p, p],
         "mcs_expand_streams": [p] * 4 + [i, i, p, p],
     })
@@ -322,6 +325,144 @@ d1_assemble.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# The camera reduction of K4 and K7: launch geometry
+# ---------------------------------------------------------------------------
+
+SHARED_BYTES_MAX = 232_448      # dynamic shared memory a block may have (sm_90)
+MAX_CLUSTER = 8                 # the portable thread-block cluster size
+CAM_ROW_BYTES = 24              # a camera's 6 f32 sums in a block's table
+STAGE_SLOT_BYTES = 80           # a slot staged by K4: 18 W floats, camid, lmloc
+STAGE_TILE_BYTES = 9 * LM_BLOCK * 4             # and its tile's H9
+K4_FIXED_BYTES = 9 * LM_BLOCK * 4 + 8           # K4's two u_part, u_s, its mbarrier
+K4_TABLE_BYTES_MAX = SHARED_BYTES_MAX // 2      # the rest is left to staging
+
+
+class CameraReduction(NamedTuple):
+    """Launch geometry of K4 (``s_apply``) or K7 (``apply_b``) in
+    csrc/schur.cu. Block (x, y) of the grid takes the work ``work_range(x)``
+    (tiles for K4, slots for K7) and the cameras ``cameras(y)``; K4's
+    cluster rank r takes the slots ``slots(r)`` of each of its tiles and
+    stages the first ``staged`` of them; with ``v_shared`` each K4 block
+    keeps v (C, 6) in shared memory."""
+
+    kernel: str
+    work: int               # K4: tiles (ntl); K7: slots (OP)
+    TP: int
+    C: int
+    grid: int               # blocks along x: rows of the (grid, C, 6) partial sums
+    cluster: int            # blocks a cluster (K4; 1 for K7)
+    cam_range: int          # cameras in one block's table
+    share: int              # K4: slots of a tile each cluster rank takes
+    staged: int             # K4: of those, how many it keeps in shared memory
+    v_shared: bool          # K4: v in shared memory (else gathered from L2)
+    shared_bytes: int       # dynamic shared memory a block
+
+    @property
+    def ranges(self) -> int:
+        """Blocks along y: camera ranges."""
+        return -(-self.C // self.cam_range)
+
+    def work_range(self, x: int) -> range:
+        """Tiles (K4) or slots (K7) of block x, as the kernel computes them."""
+        parts, p = self.grid // self.cluster, x // self.cluster
+        return range(self.work * p // parts, self.work * (p + 1) // parts)
+
+    def cameras(self, y: int) -> range:
+        return range(y * self.cam_range, min(self.C, (y + 1) * self.cam_range))
+
+    def slots(self, rank: int) -> range:
+        """Tile-local slots of K4's cluster rank ``rank``."""
+        k0 = min(rank * self.share, self.TP)
+        return range(k0, min(k0 + self.share, self.TP))
+
+
+def _cam_range(C: int, table_bytes_max: int) -> int:
+    """Cameras a table holds: C, or C split evenly into the fewest ranges
+    whose tables fit ``table_bytes_max``."""
+    ranges = -(-C // (table_bytes_max // CAM_ROW_BYTES))
+    return -(-C // ranges)
+
+
+def _k4_staging(TP: int, room: int, v_bytes: int):
+    """(cluster, share, staged, v_shared) of K4 for tiles of TP slots, with
+    ``room`` bytes of shared memory left beside the camera table and v_bytes
+    for v: the smallest cluster whose share fits, with v in shared memory
+    where it fits too (gathering v from L2 costs more than a smaller
+    cluster saves), else without; else 8 blocks staging what fits."""
+    shares = [_round_up(-(-TP // k), 32) for k in range(1, MAX_CLUSTER + 1)]
+    for v_shared in (True, False):
+        left = room - (v_bytes if v_shared else 0)
+        for k, share in enumerate(shares, 1):
+            if share * STAGE_SLOT_BYTES + STAGE_TILE_BYTES <= left:
+                return k, share, share, v_shared
+    staged = (room - STAGE_TILE_BYTES) // STAGE_SLOT_BYTES // 32 * 32
+    return MAX_CLUSTER, shares[-1], staged, False
+
+
+@functools.lru_cache(maxsize=256)
+def camera_reduction_geometry(kernel: str, C: int, TP: int, ntl: int, n_sm: int,
+                              max_clusters: Optional[int] = None) -> CameraReduction:
+    """The launch geometry of ``kernel`` ("s_apply" for K4, "apply_b" for
+    K7) on C cameras and ntl tiles of TP slots, on a card of n_sm SMs.
+
+    K7: one block an SM (split between the camera ranges), each over an
+    even share of the OP slots (a block may get none); its camera table may fill the block's whole
+    shared memory. K4: the camera table takes at most half the block's
+    shared memory; the cluster size, the staging and whether v is kept in
+    shared memory come from ``_k4_staging``; clusters take even shares of
+    the tiles, as many as the card holds at once (``max_clusters``, by
+    default one block an SM).
+    """
+    if C <= 0 or TP <= 0 or ntl <= 0 or n_sm <= 0:
+        raise ValueError(f"no geometry for C={C}, TP={TP}, ntl={ntl}, n_sm={n_sm}")
+    if kernel == "apply_b":
+        cam_range = _cam_range(C, SHARED_BYTES_MAX)
+        ranges = -(-C // cam_range)
+        return CameraReduction(kernel, ntl * TP, TP, C, max(1, n_sm // ranges), 1,
+                               cam_range, 0, 0, False, cam_range * CAM_ROW_BYTES)
+    if kernel != "s_apply":
+        raise ValueError(f"unknown kernel {kernel!r}")
+    cam_range = _cam_range(C, K4_TABLE_BYTES_MAX)
+    ranges = -(-C // cam_range)
+    table = cam_range * CAM_ROW_BYTES
+    v_bytes = C * CAM_ROW_BYTES
+    k, share, staged, v_shared = _k4_staging(
+        TP, SHARED_BYTES_MAX - K4_FIXED_BYTES - table, v_bytes)
+    clusters = n_sm // k if max_clusters is None else max_clusters
+    grid = k * max(1, min(ntl, clusters // ranges))
+    return CameraReduction(kernel, ntl, TP, C, grid, k, cam_range, share, staged, v_shared,
+                           K4_FIXED_BYTES + table + v_shared * v_bytes
+                           + staged * STAGE_SLOT_BYTES + STAGE_TILE_BYTES)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def launch_geometry(kernel: str, C: int, TP: int, ntl: int, dev) -> CameraReduction:
+    """``camera_reduction_geometry`` on the card of CUDA device ``dev``;
+    K4's clusters capped at what the card holds at once."""
+    n_sm = _sm_count(dev.index or 0)
+    geo = camera_reduction_geometry(kernel, C, TP, ntl, n_sm)
+    if kernel == "s_apply":
+        geo = camera_reduction_geometry(kernel, C, TP, ntl, n_sm,
+                                        s_apply_active_clusters(geo.cluster, geo.shared_bytes))
+    return geo
+
+
+@functools.lru_cache(maxsize=64)
+def s_apply_active_clusters(cluster: int, shared_bytes: int) -> int:
+    """How many of K4's clusters of ``cluster`` blocks with ``shared_bytes``
+    each the card holds at once (the CUDA occupancy query)."""
+    n = _library().mcs_s_apply_active_clusters(cluster, shared_bytes)
+    if n <= 0:
+        raise RuntimeError(f"s_apply: no cluster of {cluster} blocks with {shared_bytes} B "
+                           f"of shared memory fits the card (occupancy query: {n})")
+    return n
+
+
+# ---------------------------------------------------------------------------
 # K6 / K7: the two halves of the Schur product; K4 fuses them
 # ---------------------------------------------------------------------------
 
@@ -380,13 +521,18 @@ def _k6(camid, lmloc, W18, v, H9, ntl: int, TP: int) -> torch.Tensor:
 
 
 def _k7(camid, lmloc, W18, u, C: int, ntl: int, TP: int) -> torch.Tensor:
-    """Launches K7 on checked CUDA arguments: (C, 6)."""
+    """Launches K7 (and its finishing pass) on checked CUDA arguments:
+    (C, 6)."""
     dev = camid.device
     lib = _library()
+    geo = launch_geometry("apply_b", C, TP, ntl, dev)
     with torch.cuda.device(dev):
-        out = torch.zeros((C, 6), dtype=torch.float32, device=dev)
+        out = torch.empty((C, 6), dtype=torch.float32, device=dev)
+        partial = torch.empty((geo.grid, C, 6), dtype=torch.float32, device=dev)
         err = lib.mcs_apply_b(camid.data_ptr(), lmloc.data_ptr(), W18.data_ptr(),
-                              u.data_ptr(), ntl, TP, out.data_ptr(), _stream())
+                              u.data_ptr(), ntl, TP, out.data_ptr(), C, geo.grid,
+                              geo.cam_range, geo.shared_bytes, partial.data_ptr(),
+                              _stream())
     cuda_build.check_launch(err, "apply_b")
     return out
 
@@ -424,21 +570,30 @@ apply_b_raw.launches = 0
 
 
 def s_apply(camid, lmloc, W18, v, H9, *, TP: int):
-    """K4: one fused W Hll^-1 W^T v product -> (C, 6) per-camera sums; u
-    never leaves shared memory (each slot's W row is read twice, once by
-    each stage). The caller forms S v = Hcc_d v - result."""
+    """K4: one fused W Hll^-1 W^T v product -> (C, 6) per-camera sums. A
+    cluster of blocks stages each tile's W rows and ids in shared memory, so
+    each is read from device memory once (where the tile fits 8 blocks'
+    shared memory), and u never leaves shared memory. The caller forms
+    S v = Hcc_d v - result."""
     ntl = _check_w(camid, lmloc, W18, TP)
     dev, L_pad = camid.device, ntl * LM_BLOCK
     C = _check_v(v, dev)
     _check(H9, "H9", torch.float32, (9, L_pad), dev)
     if dev.type == "cpu":
         return s_apply_ref(camid, lmloc, W18, v, H9, TP=TP)
+    for name, t in (("camid", camid), ("lmloc", lmloc), ("W18", W18), ("H9", H9)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"s_apply: {name} must be 16-byte aligned (TMA bulk copies)")
     lib = _library()
+    geo = launch_geometry("s_apply", C, TP, ntl, dev)
     with torch.cuda.device(dev):
-        out = torch.zeros((C, 6), dtype=torch.float32, device=dev)
+        out = torch.empty((C, 6), dtype=torch.float32, device=dev)
+        partial = torch.empty((geo.grid, C, 6), dtype=torch.float32, device=dev)
         err = lib.mcs_s_apply(camid.data_ptr(), lmloc.data_ptr(), W18.data_ptr(),
-                              v.data_ptr(), H9.data_ptr(), ntl, TP, out.data_ptr(),
-                              _stream())
+                              v.data_ptr(), H9.data_ptr(), ntl, TP, out.data_ptr(), C,
+                              geo.grid, geo.cluster, geo.cam_range, geo.share,
+                              geo.staged, int(geo.v_shared), geo.shared_bytes,
+                              partial.data_ptr(), _stream())
     cuda_build.check_launch(err, "s_apply")
     s_apply.launches += 1
     return out

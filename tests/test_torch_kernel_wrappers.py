@@ -13,13 +13,18 @@ within 1e-3 for what is computed from residuals (rho, chi2, bl, bc: a
 residual is ~1e3 times smaller than the projection it is taken from, so
 one ulp there is ~1e-4 of it); K8 within 1e-5 relative (the same per-slot
 cost summed in another order); K9 bitwise (it moves data); the plan-form
-products within 1e-4 of each output's max-abs, as K6/K7.
+products within 1e-4 of each output's max-abs, as K6/K7. K4, K7 and the
+plan-form apply_b and schur_apply are also held, at 1e-4, at the edge
+shapes of ``chip_smoke.EDGE_CASES`` (C = 5 to 12,000, TP = 128 to 25,600,
+a tile of pad slots only), and two calls on one input to each other.
 """
 import types
 
 import numpy as np
 import pytest
 import torch
+
+import chip_smoke
 
 from motioncheck_ccm_slam_tpu_torch import convert
 from motioncheck_ccm_slam_tpu_torch.ops import fast_cuda, schur_cuda
@@ -298,3 +303,55 @@ def test_plan_kernels_match_plain_versions_on_card(cuda_device):
             assert abs(float(out) - float(want)) <= 1e-5 * float(want)
         else:
             assert _relmax(out, want) < 1e-4, name
+
+
+# ---------------------------------------------------------------------------
+# K4 and K7 (and the plan-form products that launch K7) at edge shapes
+# ---------------------------------------------------------------------------
+
+EDGE_NAMES = [c[0] for c in chip_smoke.EDGE_CASES]
+
+
+def _edge(name, device):
+    _, C, L, per_lm, tiles = next(c for c in chip_smoke.EDGE_CASES if c[0] == name)
+    return (C,) + chip_smoke.edge_case(C, L, per_lm, tiles, device)
+
+
+def test_edge_cases_have_their_shapes():
+    """The edge problems are what chip_smoke.EDGE_CASES says: TP = 128 per
+    landmark's observations, a tile of pad slots only, zero pad W rows."""
+    want_TP = {"c5_tp128": 128, "c130_tp128_pad_tile": 128, "c2048_tp4224": 4224,
+               "c12000_tp4224": 4224, "c2048_tp25600": 25600}
+    for name, _, L, per_lm, tiles in chip_smoke.EDGE_CASES:
+        C, plan, W, H9, v, u = _edge(name, "cpu")
+        n_lms = L if tiles is None else sum(min(L, t * 128 + 128) - t * 128 for t in tiles)
+        pad = plan.perm == n_lms * per_lm          # a pad slot's perm is O
+        assert plan.TP == want_TP[name], name
+        assert int(plan.camid.max()) < C and tuple(v.shape) == (C, 6)
+        assert tuple(H9.shape) == (9, plan.L_pad) == (9, plan.ntl * 128)
+        assert int((~pad).sum()) == n_lms * per_lm and not W[:, pad].any()
+        if name == "c130_tp128_pad_tile":
+            assert pad.reshape(plan.ntl, plan.TP)[1].all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", EDGE_NAMES)
+def test_k4_k7_match_plain_versions_at_edge_shapes_on_card(cuda_device, name):
+    C, plan, W, H9, v, u = _edge(name, cuda_device)
+    ids = (plan.camid, plan.lmloc, W)
+    calls = {
+        "s_apply": ((*ids, v, H9), {"TP": plan.TP}),
+        "apply_b_raw": ((*ids, u, C), {"TP": plan.TP}),
+        "apply_b": ((plan, W, u, C), {}),
+        "schur_apply": ((plan, W, v, H9), {}),
+    }
+    for fn_name, (args, kw) in calls.items():
+        fn, ref = getattr(schur_cuda, fn_name), getattr(schur_cuda, fn_name + "_ref")
+        n = fn.launches
+        a, b = fn(*args, **kw), fn(*args, **kw)
+        torch.cuda.synchronize()
+        assert fn.launches == n + 2, fn_name
+        want = ref(*args, **kw)
+        assert bool(a.isfinite().all()), fn_name
+        assert _relmax(a, want) < 1e-4 and _relmax(b, want) < 1e-4, fn_name
+        assert _relmax(a, b) < 1e-4, fn_name

@@ -226,3 +226,64 @@ def test_sym6_from_tri_matches_jax():
     tri = np.random.default_rng(0).normal(size=(7, 21)).astype(np.float32)
     np.testing.assert_array_equal(schur_cuda.sym6_from_tri(_t(tri)).numpy(),
                                   np.asarray(schur_pallas.sym6_from_tri(jnp.asarray(tri))))
+
+
+# K4's and K7's launch geometry (csrc/schur.cu's persistent grids): C from
+# 1 to 100,000 cameras, tiles from 128 to 25,600 slots, 1 to 512 tiles
+@pytest.mark.parametrize("C,TP,ntl", [
+    (1, 128, 1), (5, 128, 3), (130, 128, 1), (2048, 4224, 512), (12000, 4224, 2),
+    (2048, 19200, 40), (2048, 25600, 2), (5, 25600, 2), (100_000, 256, 7),
+])
+@pytest.mark.parametrize("kernel", ["s_apply", "apply_b"])
+def test_camera_reduction_geometry_covers_everything_once(kernel, C, TP, ntl):
+    geo = schur_cuda.camera_reduction_geometry(kernel, C, TP, ntl, 132)
+    assert geo.shared_bytes <= schur_cuda.SHARED_BYTES_MAX == 232_448
+    assert 1 <= geo.cluster <= 8 and geo.grid % geo.cluster == 0
+    assert geo.cam_range * schur_cuda.CAM_ROW_BYTES <= geo.shared_bytes
+    # every camera in exactly one range
+    cams = [geo.cameras(y) for y in range(geo.ranges)]
+    assert cams[0].start == 0 and cams[-1].stop == C
+    assert all(a.stop == b.start and len(a) > 0 for a, b in zip(cams, cams[1:] + [range(C, C)]))
+    # every tile (K4) or slot (K7) in exactly one cluster's range; a
+    # cluster's blocks share their range
+    parts = [geo.work_range(x) for x in range(0, geo.grid, geo.cluster)]
+    assert all(geo.work_range(x) == parts[x // geo.cluster] for x in range(geo.grid))
+    assert parts[0].start == 0 and parts[-1].stop == geo.work
+    assert all(a.stop == b.start for a, b in zip(parts, parts[1:]))
+    if kernel == "apply_b":
+        assert geo.work == ntl * TP and geo.cluster == 1
+        return
+    assert geo.work == ntl
+    # every slot of a tile in exactly one rank's share; staging fits
+    slots = [geo.slots(r) for r in range(geo.cluster)]
+    assert slots[0].start == 0 and slots[-1].stop == TP
+    assert all(a.stop == b.start for a, b in zip(slots, slots[1:]))
+    assert 0 < geo.staged <= geo.share and geo.staged % 32 == 0
+    table, v_bytes = geo.cam_range * schur_cuda.CAM_ROW_BYTES, C * schur_cuda.CAM_ROW_BYTES
+    assert geo.shared_bytes == (schur_cuda.K4_FIXED_BYTES + table + geo.v_shared * v_bytes
+                                + geo.staged * schur_cuda.STAGE_SLOT_BYTES
+                                + schur_cuda.STAGE_TILE_BYTES)
+    # the smallest cluster whose share fits, v in shared memory where it
+    # fits too; else 8 blocks each staging what fits
+    room = schur_cuda.SHARED_BYTES_MAX - schur_cuda.K4_FIXED_BYTES - table
+    fits = [(v, k) for v in (True, False) for k in range(1, 9)
+            if schur_cuda._round_up(-(-TP // k), 32) * schur_cuda.STAGE_SLOT_BYTES
+            + schur_cuda.STAGE_TILE_BYTES <= room - v * v_bytes]
+    if fits:
+        assert (geo.v_shared, geo.cluster) == fits[0] and geo.staged == geo.share
+    else:
+        assert (geo.v_shared, geo.cluster) == (False, schur_cuda.MAX_CLUSTER)
+        assert geo.staged < geo.share
+
+
+def test_camera_reduction_geometry_at_bench_gba_shapes():
+    k4 = schur_cuda.camera_reduction_geometry("s_apply", 2048, 4224, 512, 132)
+    assert (k4.cluster, k4.grid, k4.share, k4.staged, k4.v_shared, k4.ranges,
+            k4.shared_bytes) == (3, 132, 1408, 1408, True, 1, 220_168)
+    # as many clusters as the card holds at once, at most one a tile
+    assert schur_cuda.camera_reduction_geometry("s_apply", 2048, 4224, 512, 132, 39).grid == 117
+    assert schur_cuda.camera_reduction_geometry("s_apply", 2048, 4224, 5, 132).grid == 15
+    k7 = schur_cuda.camera_reduction_geometry("apply_b", 2048, 4224, 512, 132)
+    assert (k7.grid, k7.ranges, k7.shared_bytes) == (132, 1, 2048 * 24)
+    with pytest.raises(ValueError):
+        schur_cuda.camera_reduction_geometry("apply_a", 2048, 4224, 512, 132)
