@@ -30,11 +30,12 @@ The server's tile-stream GBA at the operating point of bench.py:bench_gba
    K5 = K6 = K7 = 10, K4 >= 10;
 10. LM iterations/s on bench_gba's exact problem (1-iteration warm-up,
     then 10 iterations), each of K3-K7 alone against its plain version, its
-    bound and a library call; K4's and K7's launch geometry; K4, K7 and the
-    plan-form apply_b and schur_apply at the edge shapes of EDGE_CASES (C
-    up to 12,000, TP from 128 to 25,600, a tile of pad slots only), each
-    called twice, within 1e-4 of max-abs of the plain version and of each
-    other; and a torch.profiler split of one iteration.
+    bound and a library call; K3's, K4's, K5's and K7's launch geometry;
+    K3, K4, K5, K7 and the plan-form apply_b and schur_apply at the edge
+    shapes of EDGE_CASES (C up to 12,000, TP from 128 to 25,600, a tile of
+    pad slots only), each called twice, within 1e-4 of max-abs of the plain
+    version and of each other (K3 part by part, its per-slot outputs bitwise
+    equal between the calls); and a torch.profiler split of one iteration.
 
 The dual-layout matrix-free GBA on the same problem (entry.
 matrix_free_gba_entry; its plan has the tile plan's 2,162,688 slots):
@@ -132,10 +133,10 @@ GBA_KERNELS = ("d1_assemble", "s_apply", "d2_precond", "apply_a_raw", "apply_b_r
 # the matrix-free GBA's kernels (K8 prices its states; it is on no solver path)
 MF_KERNELS = ("expand_sorted_streams", "apply_a", "apply_b", "schur_apply")
 # each wrapper's __global__ function in csrc/schur.cu, as the profiler names it;
-# camera_sum_kernel is K4's and K7's finishing pass
+# camera_sum_kernel is the finishing pass of K3, K4, K5 and K7
 KERNEL_SYMBOL = {"d1_assemble": "d1_assemble_kernel", "s_apply": "s_apply_kernel",
                  "d2_precond": "d2_precond_kernel", "apply_a_raw": "apply_a_kernel",
-                 "apply_b_raw": "apply_b_kernel", "k4_k7_finish": "camera_sum_kernel"}
+                 "apply_b_raw": "apply_b_kernel", "camera_sums": "camera_sum_kernel"}
 # the matrix-free GBA's kernels by CUDA name: apply_a_kernel (K6) runs for
 # apply_a and for each schur_apply, apply_b_kernel (K7) and its finishing
 # pass for apply_b and each schur_apply
@@ -147,12 +148,12 @@ KICK_SLOTS = range(200, 264)
 MC_ATE_RATIO, NO_MC_MIN_ATE_M = 0.1, 0.3
 
 
-# K4's and K7's edge shapes: (name, C, L, observations a landmark, observed
-# landmark tiles or None for all). C = 5, 130, 2048 and 12,000 (whose (C, 6)
-# camera table fits no block's shared memory: both kernels split the
-# cameras into ranges, and K4 gathers v from L2); TP = 128, 4224 and 25,600
-# (a tile too wide for 8 blocks to stage: K4 reads part of it twice); a
-# tile of pad slots only.
+# The camera-table kernels' edge shapes (K3, K4, K5, K7): (name, C, L,
+# observations a landmark, observed landmark tiles or None for all). C = 5,
+# 130, 2048 and 12,000 (whose camera tables fit no block's shared memory:
+# the kernels split the cameras into ranges, and K4 gathers v from L2); TP =
+# 128, 4224 and 25,600 (a tile too wide for 8 blocks to stage: K4 reads
+# part of it twice); a tile of pad slots only.
 EDGE_CASES = (
     ("c5_tp128", 5, 300, 1, None),
     ("c130_tp128_pad_tile", 130, 384, 1, (0, 2)),
@@ -400,12 +401,21 @@ def k2_library_weight(device):
     return w, r
 
 
-def edge_case(C: int, L: int, per_lm: int, tiles, device, seed: int = 0):
-    """A K4 / K7 problem from a numpy seed: each observed landmark (those
-    of ``tiles``, or all L) seen by per_lm distinct random cameras, in the
-    plan of ``schur_cuda.build_schur_plan`` (so TP = 128 per_lm); a random
-    W stream, zero at pad slots and at 10% of the others; an SPD Hll^-1
-    (H9); a v and a u. Returns (plan on the device, W18, H9, v, u)."""
+def edge_case(C: int, L: int, per_lm: int, tiles, device, seed: int = 0,
+              state: bool = False):
+    """A problem of the camera-table kernels from a numpy seed: each
+    observed landmark (those of ``tiles``, or all L) seen by per_lm distinct
+    random cameras, in the plan of ``schur_cuda.build_schur_plan`` (so TP =
+    128 per_lm); a random W stream, zero at pad slots and at 10% of the
+    others; an SPD Hll^-1 (H9); a v and a u. Returns (plan on the device,
+    W18, H9, v, u) and, with ``state``, K3's arguments after the plan's ids
+    from the same generator: (uv, is2, valid, free, kp, pose, X).
+
+    K3's state: cameras 0.05 rad and 0.5 m from the origin looking down +z,
+    points 4-8 m ahead (3% of them behind the cameras), EuRoC intrinsics;
+    each slot's uv its projection plus 2 px of noise, 10% of them 30 px
+    off (the Huber branch); is2 of 8 pyramid levels; 5% of the observations
+    invalid, pads invalid; camera 0 and every 17th landmark fixed."""
     from motioncheck_ccm_slam_tpu_torch.ops import schur_cuda
 
     rng = np.random.default_rng(seed)
@@ -414,27 +424,93 @@ def edge_case(C: int, L: int, per_lm: int, tiles, device, seed: int = 0):
     cam = np.concatenate([np.sort(rng.choice(C, per_lm, replace=False)) for _ in lms])
     plan = schur_cuda.build_schur_plan(np.repeat(lms, per_lm), cam, L)
     OP = plan.ntl * plan.TP
+    pad = plan.perm == cam.shape[0]
     W = rng.normal(0, 1, (18, OP)).astype(np.float32)
-    W[:, (plan.perm == cam.shape[0]) | (rng.uniform(size=OP) < 0.1)] = 0.0
+    W[:, pad | (rng.uniform(size=OP) < 0.1)] = 0.0
     Q = rng.normal(0, 0.05, (plan.L_pad, 3, 3))
     H = np.eye(3) * rng.uniform(0.2, 2.0, (plan.L_pad, 1, 1)) + Q @ Q.transpose(0, 2, 1)
     H9 = np.ascontiguousarray(H.reshape(-1, 9).T)
     v = rng.normal(0, 1, (C, 6))
     u = rng.normal(0, 1, (3, plan.L_pad))
-    return (plan.to(device),) + tuple(torch.from_numpy(a.astype(np.float32)).to(device)
-                                      for a in (W, H9, v, u))
+    arrays = (W, H9, v, u)
+    if state:
+        w = rng.normal(0, 0.05, (C, 3))                  # Rodrigues, per camera
+        th = np.linalg.norm(w, axis=1)[:, None, None]
+        Kx = np.zeros((C, 3, 3))
+        Kx[:, 0, 1], Kx[:, 0, 2], Kx[:, 1, 2] = -w[:, 2], w[:, 1], -w[:, 0]
+        Kx -= Kx.transpose(0, 2, 1)
+        R = np.eye(3) + np.sin(th) / th * Kx + (1 - np.cos(th)) / th ** 2 * Kx @ Kx
+        t = rng.uniform(-0.5, 0.5, (C, 3))
+        X = np.stack([rng.uniform(-3, 3, plan.L_pad), rng.uniform(-3, 3, plan.L_pad),
+                      rng.uniform(4, 8, plan.L_pad)], 1)
+        X[rng.uniform(size=plan.L_pad) < 0.03, 2] = -3.0
+        kp = np.array([458.654, 457.296, 367.215, 248.375])
+        lm = np.arange(OP) // plan.TP * 128 + plan.lmloc
+        pc = np.einsum("sij,sj->si", R[plan.camid], X[lm]) + t[plan.camid]
+        z = np.where(pc[:, 2] > 1e-6, pc[:, 2], 1.0)
+        uv = np.stack([kp[0] * pc[:, 0] / z + kp[2], kp[1] * pc[:, 1] / z + kp[3]], 1)
+        noise = rng.normal(0, 2.0, (OP, 2))
+        uv += np.where(rng.uniform(size=(OP, 1)) < 0.1, 15 * noise, noise)
+        is2 = 1.2 ** (-2.0 * rng.integers(0, 8, OP))
+        valid = ~pad & (rng.uniform(size=OP) >= 0.05)
+        free = ~pad & (plan.camid != 0) & (lm % 17 != 0)
+        pose = np.concatenate([R.reshape(C, 9), t], 1)
+        arrays += (uv, is2, valid, free, kp, pose, X)
+    out = [torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device) for a in arrays]
+    return (plan.to(device),) + tuple(out[:4]) + ((tuple(out[4:]),) if state else ())
+
+
+def d1_errors(out, ref) -> dict:
+    """K3's outputs (W18, aux, hllbl, cam27) against ref's, part by part,
+    relative to each part's max-abs in ref; for the inlier flags, the
+    fraction of slots whose flag differs."""
+    (W18, aux, hllbl, cam27), (rW, raux, rh, rc) = out, ref
+    return {"W18": relmax(W18, rW), "rho": relmax(aux[0], raux[0]),
+            "chi2": relmax(aux[2], raux[2]),
+            "inlier_flips": float((aux[1] != raux[1]).float().mean()),
+            "Hll": relmax(hllbl[:9], rh[:9]), "bl": relmax(hllbl[9:], rh[9:]),
+            "Hcc": relmax(cam27[:, :21], rc[:, :21]), "bc": relmax(cam27[:, 21:], rc[:, 21:])}
+
+
+def k3_k5_edge_errors(C: int, plan, W, H9, state) -> dict:
+    """K3 and K5 on an edge_case problem, each called twice: worst
+    relative error of either call against the plain version and of the
+    two calls against each other, per part of K3's outputs (inlier_flips:
+    the larger fraction of flags that differ from the plain version's)
+    and for K5. K3's per-slot outputs (W18, aux) take no atomics, so the
+    two calls must agree bitwise; this raises where they do not."""
+    from motioncheck_ccm_slam_tpu_torch.ops import schur_cuda
+
+    d1 = (plan.camid, plan.lmloc) + tuple(state)
+    a, b = (schur_cuda.d1_assemble(*d1, TP=plan.TP) for _ in range(2))
+    ref = schur_cuda.d1_assemble_ref(*d1, TP=plan.TP)
+    torch.cuda.synchronize()
+    check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+          "K3's per-slot outputs differ between two calls")
+    comps = [d1_errors(x, y) for x, y in ((a, ref), (b, ref), (a, b))]
+    errs = {f"d1_assemble.{k}": max(c[k] for c in comps) for k in comps[0]}
+    check(all(bool(x.isfinite().all()) for x in a), "K3 gave non-finite values")
+    k5 = [schur_cuda.d2_precond(plan.camid, plan.lmloc, W, H9, C, TP=plan.TP) for _ in range(2)]
+    r5 = schur_cuda.d2_precond_ref(plan.camid, plan.lmloc, W, H9, C, TP=plan.TP)
+    torch.cuda.synchronize()
+    check(bool(k5[0].isfinite().all()), "K5 gave non-finite values")
+    errs["d2_precond"] = max(relmax(k5[0], r5), relmax(k5[1], r5), relmax(k5[0], k5[1]))
+    return errs
 
 
 def edge_products(device) -> dict:
-    """K4, K7 and the plan-form apply_b and schur_apply against their plain
-    versions at EDGE_CASES' shapes, each called twice: both calls within
-    SUM_RTOL of the plain version's max-abs, and of each other. Returns
-    case -> (K4's geometry, K7's geometry, name -> worst relative error)."""
+    """K3, K4, K5, K7 and the plan-form apply_b and schur_apply against
+    their plain versions at EDGE_CASES' shapes, each called twice: both
+    calls within SUM_RTOL of the plain version's max-abs, and of each other
+    (K3 part by part, its inlier flags differing from the plain version's
+    on at most 1e-4 of the slots or one slot: a chi2 within rounding of the
+    gate). Returns case -> (K4's geometry, K7's geometry, name -> worst
+    relative error)."""
     from motioncheck_ccm_slam_tpu_torch.ops import schur_cuda
 
     out = {}
     for name, C, L, per_lm, tiles in EDGE_CASES:
-        plan, W, H9, v, u = edge_case(C, L, per_lm, tiles, device)
+        plan, W, H9, v, u, state = edge_case(C, L, per_lm, tiles, device, state=True)
         ids = (plan.camid, plan.lmloc, W)
         calls = {
             "s_apply": (lambda: schur_cuda.s_apply(*ids, v, H9, TP=plan.TP),
@@ -455,22 +531,31 @@ def edge_products(device) -> dict:
             check(bool(a.isfinite().all()) and errs[k] <= SUM_RTOL,
                   f"{k} at edge shape {name} off its plain version or its own second "
                   f"call by {errs[k]:.3g} > {SUM_RTOL}")
-        geo = tuple(schur_cuda.launch_geometry(k, C, plan.TP, plan.ntl, device)
-                    for k in ("s_apply", "apply_b"))
-        out[name] = (geo[0], geo[1], errs)
+        k35 = k3_k5_edge_errors(C, plan, W, H9, state)
+        flips = k35.pop("d1_assemble.inlier_flips")
+        check(flips <= max(1e-4, 1.0 / (plan.ntl * plan.TP)),
+              f"K3's inlier flags at edge shape {name} differ on {flips:.3g} of the slots")
+        for k, e in k35.items():
+            check(e <= SUM_RTOL, f"{k} at edge shape {name} off its plain version or its "
+                  f"own second call by {e:.3g} > {SUM_RTOL}")
+        errs.update(k35, **{"d1_assemble.inlier_flips": flips})
+        geo = {k: schur_cuda.launch_geometry(k, C, plan.TP, plan.ntl, device)
+               for k in ("s_apply", "apply_b", "d1_assemble", "d2_precond")}
+        out[name] = (geo["s_apply"], geo["apply_b"], errs)
         print(f"phase 10 edge shape {name}: C={C} TP={plan.TP} ntl={plan.ntl}; K4 cluster "
-              f"{geo[0].cluster}, staged {geo[0].staged} of {geo[0].share} slots a rank, "
-              f"v in shared memory {geo[0].v_shared}, "
-              f"{geo[0].ranges} camera range(s), {geo[0].shared_bytes} B; K7 "
-              f"{geo[1].ranges} camera range(s); worst relative error "
-              + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()))
-    # every way K4 stages: v in shared memory or not, a tile whole or in
-    # part; both kernels' camera ranges
+              f"{geo['s_apply'].cluster}, staged {geo['s_apply'].staged} of "
+              f"{geo['s_apply'].share} slots a rank, v in shared memory "
+              f"{geo['s_apply'].v_shared}, {geo['s_apply'].ranges} camera range(s), "
+              f"{geo['s_apply'].shared_bytes} B; camera ranges K7 {geo['apply_b'].ranges}, "
+              f"K3 {geo['d1_assemble'].ranges}, K5 {geo['d2_precond'].ranges}; worst "
+              "relative error " + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()))
+        if name == "c12000_tp4224":
+            check(all(g.ranges > 1 for g in geo.values()),
+                  "C = 12,000 did not split every camera table")
+    # every way K4 stages: v in shared memory or not, a tile whole or in part
     ways = {(g4.v_shared, g4.staged == g4.share) for g4, _, _ in out.values()}
     want = {(True, True), (False, True), (False, False)}
     check(ways >= want, f"the edge shapes miss K4's staging {sorted(want - ways)}")
-    g4, g7, _ = out["c12000_tp4224"]
-    check(g4.ranges > 1 and g7.ranges > 1, "C = 12,000 did not split the camera tables")
     return out
 
 
@@ -569,17 +654,9 @@ def gba_phases(device, smi: str, schur_log: str) -> dict:
     ref = schur_cuda.d1_assemble_ref(*d1_args, TP=TP)
     torch.cuda.synchronize()
     W18, aux, hllbl, cam27 = out
-    rW, raux, rh, rc = ref
-    errs = {
-        "W18": (relmax(W18, rW), SUM_RTOL),
-        "rho": (relmax(aux[0], raux[0]), RESIDUAL_RTOL),
-        "chi2": (relmax(aux[2], raux[2]), RESIDUAL_RTOL),
-        "inlier_flips": (float((aux[1] != raux[1]).float().mean()), 1e-4),
-        "Hll": (relmax(hllbl[:9], rh[:9]), SUM_RTOL),
-        "bl": (relmax(hllbl[9:], rh[9:]), RESIDUAL_RTOL),
-        "Hcc": (relmax(cam27[:, :21], rc[:, :21]), SUM_RTOL),
-        "bc": (relmax(cam27[:, 21:], rc[:, 21:]), RESIDUAL_RTOL),
-    }
+    tol = {"W18": SUM_RTOL, "rho": RESIDUAL_RTOL, "chi2": RESIDUAL_RTOL, "inlier_flips": 1e-4,
+           "Hll": SUM_RTOL, "bl": RESIDUAL_RTOL, "Hcc": SUM_RTOL, "bc": RESIDUAL_RTOL}
+    errs = {k: (e, tol[k]) for k, e in d1_errors(out, ref).items()}
     max_abs = {"d1_assemble": max(float((a - b).abs().max()) for a, b in zip(out, ref))}
     for k, (e, tol) in errs.items():
         check(e <= tol and np.isfinite(e), f"K3 {k} off its plain version by {e:.3g} > {tol}")
@@ -738,13 +815,14 @@ def gba_phases(device, smi: str, schur_log: str) -> dict:
     for n in GBA_KERNELS:
         records[n]["launches"] = launches[n]
 
-    # K4's and K7's launch geometry at these shapes; both at the edge shapes
-    geo4 = schur_cuda.launch_geometry("s_apply", C, TP, tp.ntl, device)
-    geo7 = schur_cuda.launch_geometry("apply_b", C, TP, tp.ntl, device)
-    print(f"phase 10 K4 geometry {geo4._asdict()}, "
-          f"{schur_cuda.s_apply_active_clusters(geo4.cluster, geo4.shared_bytes)} clusters "
-          f"resident at once; "
-          f"K7 geometry {geo7._asdict()}")
+    # the camera-table kernels' launch geometry at these shapes, and all of
+    # them at the edge shapes
+    geo = {n: schur_cuda.launch_geometry(n, C, TP, tp.ntl, device)
+           for n in ("d1_assemble", "s_apply", "d2_precond", "apply_b")}
+    print(f"phase 10 K4 geometry {geo['s_apply']._asdict()}, "
+          f"{schur_cuda.s_apply_active_clusters(geo['s_apply'].cluster, geo['s_apply'].shared_bytes)}"
+          f" clusters resident at once; K7 geometry {geo['apply_b']._asdict()}; K3 geometry "
+          f"{geo['d1_assemble']._asdict()}; K5 geometry {geo['d2_precond']._asdict()}")
     gba["edge_shapes"] = {name: errs for name, (_, _, errs) in edge_products(device).items()}
 
     # torch.profiler splits of a 10-iteration call from each state (after one

@@ -15,22 +15,24 @@
 // Layout. Observations lie in landmark-aligned tiles: tile t holds the
 // (padded) slots of landmarks [128t, 128t+128), TP slots a tile, OP = ntl*TP
 // slots in all. Every slot has a camera id and a tile-local landmark id.
-// K3, K5, K6, K8: one block runs one tile; its threads stride over the
-// tile's slots. K4 and K7 run persistent grids, described at each kernel.
+// K6, K8: one block runs one tile; its threads stride over the tile's
+// slots. K3, K4, K5 and K7 run persistent grids, described at each kernel.
 //
 // - Camera-side inputs (the (C,12) pose table, the (C,6) vector v) are read
 //   in f32 through the read-only cache. The Pallas kernels expanded them with
 //   one-hot MXU products of bf16 splits; here the gather is native and exact.
-// - Landmark-side sums (Hll+bl, W^T v) go into shared memory: a tile owns its
-//   128 landmarks, so these need no global atomics and no second pass.
-// - Camera-side sums of K3 and K5 (Hcc+bc, the preconditioner) go by
-//   atomicAdd into (C,27) / (C,21) outputs that the wrapper zeroes. K4's and
-//   K7's (the Schur products) go into a camera table in each block's shared
+// - Landmark-side sums (Hll+bl, W^T v) go into shared memory: a tile lies
+//   whole in one block (in K4, one cluster), so these need no global atomics
+//   and no second pass.
+// - Camera-side sums of K3 (Hcc+bc), K4 and K7 (the Schur products) and K5
+//   (the preconditioner) go into a camera table in each block's shared
 //   memory, flushed once a block and summed in block order by a finishing
-//   pass (see "The camera reduction"): no global atomic per slot. Shared
-//   atomics still sum in no fixed order, so all these outputs differ from
-//   run to run in the last bits of f32; the tests hold them to a relative
-//   tolerance.
+//   pass (see "The camera reduction"): no global atomic per slot. Each of
+//   these outputs, and K3's landmark sums, is the same from run to run up to
+//   the order of one block's shared-memory atomics, which sum in no fixed
+//   order, so they differ in the last bits of f32; the tests hold them to a
+//   relative tolerance. Per-slot outputs (K3's W and aux, K9's streams)
+//   take no atomics and are the same bits on every run.
 // - A slot whose weight is zero (a pad slot, an invalid observation, a point
 //   behind the camera, or a fixed entity in the W stream) adds exact zeros,
 //   so it is skipped before any atomic: pad slots all name camera 0, and
@@ -42,11 +44,12 @@
 // under the f32 ridge of ~20 flop/byte, so all seven are bounded by memory
 // traffic. K4 stages each slot's W row and ids in its cluster's shared
 // memory, so it reads them once wherever a tile fits 8 blocks' shared memory
-// (TP up to ~19,000 slots at C = 2048). What keeps K4 and K7 above their
-// one-read bounds is said at each kernel: mostly the camera table's shared
+// (TP up to ~19,000 slots at C = 2048). What keeps each kernel above its
+// one-read bound is said at the kernel: mostly the camera tables' shared
 // atomics, which are compare-and-swap loops on this card, and for K4 the
-// barriers between a tile's phases; their finishing pass moves grid x C x
-// 24 bytes twice (6.3 MB at bench_gba's shapes).
+// barriers between a tile's phases; the finishing passes move grid x C x
+// 4k bytes twice for k floats a camera (6.3 MB at bench_gba's shapes for
+// K4 and K7, k = 6; 29.2 MB for K3, k = 27; 22.7 MB for K5, k = 21).
 //
 // Each entry point launches on the stream it is given and returns
 // cudaGetLastError(); the Python wrapper raises when that is not 0.
@@ -121,25 +124,26 @@ __device__ __forceinline__ void solve_stage(const float* __restrict__ H9,
 }
 
 // ---------------------------------------------------------------------------
-// The camera reduction of K4 and K7.
+// The camera reduction of K3, K4, K5 and K7.
 // ---------------------------------------------------------------------------
 //
 // A block owns a table of cameras [c0, c0 + ncam) in dynamic shared memory,
-// 6 floats a camera. It adds the camera-side sums of every slot it handles
-// into that table by shared-memory atomics (the grids are persistent: a
-// block takes many tiles), then writes the table once, with plain stores, to
-// row blockIdx.x of a (grid.x, C, 6) partial buffer. Where one (C, 6) table
-// does not fit beside the rest of a block's shared memory, grid.y splits the
-// cameras into ranges of cam_range, and a block skips the slots of cameras
-// outside its range. camera_sum_kernel then adds the partial rows in block
-// order. No global atomic is taken per slot.
+// k floats a camera (K4, K7: 6; K3: 27; K5: 21). It adds the camera-side
+// sums of every slot it handles into that table by shared-memory atomics
+// (the grids are persistent: a block takes many tiles or slots), then writes
+// the table once, with plain stores, to row blockIdx.x of a (grid.x, C, k)
+// partial buffer. Where one (C, k) table does not fit beside the rest of a
+// block's shared memory, grid.y splits the cameras into ranges of
+// cam_range, and a block skips the slots of cameras outside its range.
+// camera_sum_kernel then adds the partial rows in block order. No global
+// atomic is taken per slot.
 
 __device__ __forceinline__ bool in_range(int cam, int c0, int ncam) {
   return static_cast<unsigned>(cam - c0) < static_cast<unsigned>(ncam);
 }
 
-__device__ __forceinline__ void table_zero(float* table, int ncam) {
-  for (int i = threadIdx.x; i < ncam * 6; i += blockDim.x) table[i] = 0.0f;
+__device__ __forceinline__ void table_zero(float* table, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) table[i] = 0.0f;
 }
 
 // p[0] += a and p[1] += b as one 64-bit compare-and-swap loop (p 8-byte
@@ -178,18 +182,43 @@ __device__ __forceinline__ void table_add(float* table, int cam, int c0,
   }
 }
 
-// The table to partial row blockIdx.x, cameras [c0, c0 + ncam) of C. Each
-// thread reads the entries that it zeroed itself, so the caller's last
-// __syncthreads() is the only barrier needed.
+// Row r of a camera table of N floats a row (N odd: K3's 27, K5's 21) +=
+// x, by 64-bit compare-and-swap pairs (kPaired) or N single f32 atomics. A
+// row starts 8-byte aligned where r is even and 4 bytes past that where r is
+// odd (the table itself is 16-byte aligned); the pairs start at its first
+// 8-byte boundary, and the entry left over (the last or the first) takes a
+// single atomic: (N + 1) / 2 compare-and-swap loops instead of N.
+template <int N, bool kPaired>
+__device__ __forceinline__ void row_add(float* table, int r, const float (&x)[N]) {
+  static_assert(N % 2 == 1, "row_add pairs the entries of odd-width rows");
+  float* row = table + r * N;
+  if (!kPaired) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) atomicAdd(row + i, x[i]);
+    return;
+  }
+  const bool odd = r & 1;
+  atomicAdd(row + (odd ? 0 : N - 1), odd ? x[0] : x[N - 1]);
+#pragma unroll
+  for (int p = 0; p < N / 2; ++p) {
+    atomic_add_pair(row + 2 * p + (odd ? 1 : 0), odd ? x[2 * p + 1] : x[2 * p],
+                    odd ? x[2 * p + 2] : x[2 * p + 1]);
+  }
+}
+
+// The table (k floats a camera) to partial row blockIdx.x, cameras
+// [c0, c0 + ncam) of C, after a __syncthreads() that follows every add (in
+// K4 and K7 each thread reads the entries that it zeroed itself, so their
+// last __syncthreads() is that barrier).
 __device__ __forceinline__ void table_flush(const float* table, int C, int c0, int ncam,
-                                            float* __restrict__ partial) {
-  float* dst = partial + (static_cast<size_t>(blockIdx.x) * C + c0) * 6;
-  for (int i = threadIdx.x; i < ncam * 6; i += blockDim.x) dst[i] = table[i];
+                                            int k, float* __restrict__ partial) {
+  float* dst = partial + (static_cast<size_t>(blockIdx.x) * C + c0) * k;
+  for (int i = threadIdx.x; i < ncam * k; i += blockDim.x) dst[i] = table[i];
 }
 
 constexpr int kSumCols = 32, kSumRows = 8;
 
-// The finishing pass: out[e] = sum_g partial[g][e], e < n = 6C. A block
+// The finishing pass: out[e] = sum_g partial[g][e], e < n = kC. A block
 // takes 32 neighbouring entries; thread row r adds rows g = r, r+8, ... in
 // turn, then row 0 adds the 8 row sums. The order is fixed, so run-to-run
 // differences come only from the shared-memory atomics inside each block.
@@ -213,9 +242,10 @@ camera_sum_kernel(const float* __restrict__ partial, int groups, size_t n,
 }
 
 // After this, the first lane of each run of equal keys among the warp's
-// lanes (neighbouring lanes, any key order) holds the run's sums of a, b, c.
+// lanes (neighbouring lanes, any key order) holds the run's sums of a.
 // Returns whether this lane is such a first lane.
-__device__ __forceinline__ bool warp_run_sum(int key, float& a, float& b, float& c) {
+template <int N>
+__device__ __forceinline__ bool warp_run_sums(int key, float (&a)[N]) {
   const unsigned all = 0xffffffffu;
   const int lane = threadIdx.x & 31;
   const int up = __shfl_up_sync(all, key, 1);      // every lane takes part
@@ -225,13 +255,12 @@ __device__ __forceinline__ bool warp_run_sum(int key, float& a, float& b, float&
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
     const int ro = __shfl_down_sync(all, run, d);
-    const float ao = __shfl_down_sync(all, a, d);
-    const float bo = __shfl_down_sync(all, b, d);
-    const float co = __shfl_down_sync(all, c, d);
+    float o[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) o[i] = __shfl_down_sync(all, a[i], d);
     if (lane + d < 32 && ro == run) {
-      a += ao;
-      b += bo;
-      c += co;
+#pragma unroll
+      for (int i = 0; i < N; ++i) a[i] += o[i];
     }
   }
   return head;
@@ -248,6 +277,27 @@ __device__ __forceinline__ void load_pose(const float* __restrict__ pose, int ca
   for (int q = 0; q < 9; ++q) R[q] = __ldg(pose + cam * 12 + q);
 #pragma unroll
   for (int q = 0; q < 3; ++q) t[q] = __ldg(pose + cam * 12 + 9 + q);
+}
+
+// load_pose by three 16-byte loads from a 16-byte aligned table. K3 gives
+// most of an SM's L1 to its camera table, so the twelve 4-byte loads of
+// load_pose would each be a separate request to L2 for a slot's camera.
+__device__ __forceinline__ void load_pose_vec(const float* __restrict__ pose, int cam,
+                                              float (&R)[9], float (&t)[3]) {
+  const float4* p = reinterpret_cast<const float4*>(pose) + cam * 3;
+  const float4 a = __ldg(p), b = __ldg(p + 1), c = __ldg(p + 2);
+  R[0] = a.x;
+  R[1] = a.y;
+  R[2] = a.z;
+  R[3] = a.w;
+  R[4] = b.x;
+  R[5] = b.y;
+  R[6] = b.z;
+  R[7] = b.w;
+  R[8] = c.x;
+  t[0] = c.y;
+  t[1] = c.z;
+  t[2] = c.w;
 }
 
 struct Projection {
@@ -286,92 +336,194 @@ __device__ __forceinline__ Projection project_slot(const float (&R)[9], const fl
 // ---------------------------------------------------------------------------
 // K3: one linearisation pass.
 // ---------------------------------------------------------------------------
-
+//
 // Per slot: p = R X + t, residual, chi2, Huber weight, camera Jacobian Jc
 // (2x6, left se3 perturbation (omega, upsilon)) and point Jacobian Jl (2x3);
 // W = wf Jc^T Jl in J-major rows; aux rows rho / inlier / chi2. Per landmark
-// Hll (9, rows j*3+k) and bl (3) in shared memory; per camera the Hcc upper
-// triangle (21, PAIRS6 order) and bc (6) by atomicAdd. Hll and Hcc use w, the
-// W stream w * free (fixed entities couple nothing; their blocks are
-// overwritten by the caller).
-__global__ void __launch_bounds__(kThreads)
-d1_assemble_kernel(const int* __restrict__ camid, const int* __restrict__ lmloc,
-                   const float* __restrict__ uv, const float* __restrict__ is2,
-                   const float* __restrict__ valid, const float* __restrict__ free_,
-                   const float* __restrict__ kp, const float* __restrict__ pose,
-                   const float* __restrict__ X, int TP, size_t OP, size_t L_pad,
-                   float* __restrict__ W18, float* __restrict__ aux,
-                   float* __restrict__ hllbl, float* __restrict__ cam27) {
-  __shared__ float x_s[3][kLm];
-  __shared__ float lm_acc[12][kLm];
-  const size_t lm0 = static_cast<size_t>(blockIdx.x) * kLm;
-  for (int i = threadIdx.x; i < 12 * kLm; i += blockDim.x) lm_acc[i / kLm][i % kLm] = 0.0f;
-  for (int i = threadIdx.x; i < 3 * kLm; i += blockDim.x) {
-    const int l = i / 3, c = i % 3;
-    x_s[c][l] = X[(lm0 + l) * 3 + c];
-  }
-  __syncthreads();
-  const float fx = __ldg(kp), fy = __ldg(kp + 1), cx = __ldg(kp + 2), cy = __ldg(kp + 3);
-  const size_t base = static_cast<size_t>(blockIdx.x) * TP;
-  for (int k = threadIdx.x; k < TP; k += blockDim.x) {
-    const size_t s = base + k;
-    const int cam = camid[s], l = lmloc[s];
-    float R[9], t[3];
-    load_pose(pose, cam, R, t);
-    const float vs = valid[s];
-    const Projection p = project_slot(R, t, x_s[0][l], x_s[1][l], x_s[2][l], uv[2 * s],
-                                      uv[2 * s + 1], is2[s], vs, fx, fy, cx, cy);
-    const float pc0 = p.pc0, pc1 = p.pc1, pc2 = p.pc2, iz = p.iz, rx = p.rx, ry = p.ry;
-    const float w = p.w;
-    aux[s] = p.rho;
-    aux[OP + s] = (vs != 0.0f && p.front && p.chi2 <= kChi2Gate) ? vs : 0.0f;
-    aux[2 * OP + s] = p.chi2;
+// Hll (9, rows j*3+k) and bl (3); per camera the Hcc upper triangle (21,
+// PAIRS6 order) and bc (6). Hll and Hcc use w, the W stream w * free (fixed
+// entities couple nothing; their blocks are overwritten by the caller).
+//
+// A persistent grid: block (x, y) takes the tiles [ntl x / X, ntl (x+1) / X)
+// of the grid's X blocks along x, each tile whole, and the cameras of range
+// y, whose Hcc + bc it adds into its camera table (27 floats a camera,
+// 221,184 B at C = 2048: one block an SM). Only range 0's blocks write the
+// per-slot outputs and the landmark sums; a block of another range (C above
+// 2066) reads a slot's camera id first and skips the slot unless the camera
+// is in its range, so that each of those is written once. Landmark side:
+// the slots of one landmark are neighbours, so a warp first sums each run of
+// one landmark (warp_run_sums, 9 values: Hll's upper triangle and bl), and
+// the run's first lane takes the 9 shared atomics into the tile's (9, 128)
+// landmark table; there are two such tables, one for odd tiles, so one
+// barrier a tile suffices: after it the block writes the tile's hllbl rows
+// (Hll mirrored, so exactly symmetric) and zeroes the table for the tile
+// after next. X is read through the read-only cache (a tile's 128 points
+// are 1.5 KB), each slot's pose row by three 16-byte loads.
+//
+// Measured on NVIDIA H100 80GB HBM3 cards at 700.00 W (chip_smoke.py phase
+// 10 and tools/torch_schur_probe.py; each run's numbers in PERF.md): ~0.20
+// ms a call at bench_gba's shapes against a byte bound of 0.0728 ms (~1.02
+// ms with a global atomic per slot and camera entry instead). Without
+// its camera sums (a wrong result, timed only) it takes ~0.16 ms: the
+// per-slot work keeps it at a third of its bound. The camera table takes
+// most of the SM's L1, so the pose rows come from L2: as twelve 4-byte
+// loads a slot K3 took ~0.25 ms. The table's paired atomics cost ~0.035 ms
+// (single f32 atomics ~0.085), the landmark atomics after the run sums
+// ~0.01; 512 threads a block instead of 1024 took ~0.23 ms.
+constexpr int kD1Threads = 1024;
+constexpr int kD1Row = 27;                          // a camera's Hcc upper triangle, bc
+constexpr int kLmRow = 9;                           // a landmark's Hll upper triangle, bl
+constexpr int kD1FixedBytes = 2 * kLmRow * kLm * 4;    // the two landmark tables
 
-    const float a00 = fx * iz, a02 = -fx * pc0 * iz * iz;
-    const float a11 = fy * iz, a12 = -fy * pc1 * iz * iz;
-    const float Jc0[6] = {-(a02 * pc1), -(a00 * pc2 - a02 * pc0), a00 * pc1, -a00, 0.0f, -a02};
-    const float Jc1[6] = {a11 * pc2 - a12 * pc1, a12 * pc0, -a11 * pc0, 0.0f, -a11, -a12};
-    float Jl0[3], Jl1[3];
+struct D1Params {
+  const int* __restrict__ camid;
+  const int* __restrict__ lmloc;
+  const float* __restrict__ uv;
+  const float* __restrict__ is2;
+  const float* __restrict__ valid;
+  const float* __restrict__ free_;
+  const float* __restrict__ kp;
+  const float* __restrict__ pose;
+  const float* __restrict__ X;
+  int ntl, TP, C, cam_range;
+  size_t OP, L_pad;
+  float* __restrict__ W18;
+  float* __restrict__ aux;
+  float* __restrict__ hllbl;
+  float* __restrict__ partial;
+};
+
+// K3's work on slot s, landmark lm (global id), camera cam: the projection,
+// robust weight and Jacobians; with kFirst the slot's W and aux and its
+// landmark values a (which stay zero where the weight is zero); its Hcc and
+// bc into the block's table if cam lies in [c0, c0 + ncam).
+template <bool kFirst>
+__device__ __forceinline__ void d1_slot(const D1Params& P, const float (&k)[4], size_t s,
+                                        size_t lm, int cam, int c0, int ncam, float* table,
+                                        float (&a)[kLmRow]) {
+  float R[9], t[3];
+  load_pose_vec(P.pose, cam, R, t);
+  const float vs = P.valid[s];
+  const float2 obs = reinterpret_cast<const float2*>(P.uv)[s];
+  const Projection p = project_slot(R, t, __ldg(P.X + lm * 3), __ldg(P.X + lm * 3 + 1),
+                                    __ldg(P.X + lm * 3 + 2), obs.x, obs.y, P.is2[s], vs,
+                                    k[0], k[1], k[2], k[3]);
+  const float pc0 = p.pc0, pc1 = p.pc1, pc2 = p.pc2, iz = p.iz, rx = p.rx, ry = p.ry;
+  const float w = p.w;
+  if (kFirst) {
+    P.aux[s] = p.rho;
+    P.aux[P.OP + s] = (vs != 0.0f && p.front && p.chi2 <= kChi2Gate) ? vs : 0.0f;
+    P.aux[2 * P.OP + s] = p.chi2;
+  }
+  const float a00 = k[0] * iz, a02 = -k[0] * pc0 * iz * iz;
+  const float a11 = k[1] * iz, a12 = -k[1] * pc1 * iz * iz;
+  const float Jc0[6] = {-(a02 * pc1), -(a00 * pc2 - a02 * pc0), a00 * pc1, -a00, 0.0f, -a02};
+  const float Jc1[6] = {a11 * pc2 - a12 * pc1, a12 * pc0, -a11 * pc0, 0.0f, -a11, -a12};
+  float Jl0[3], Jl1[3];
 #pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      Jl0[j] = -(a00 * R[j] + a02 * R[6 + j]);
-      Jl1[j] = -(a11 * R[3 + j] + a12 * R[6 + j]);
-    }
-    const float wf = w * free_[s];
+  for (int j = 0; j < 3; ++j) {
+    Jl0[j] = -(a00 * R[j] + a02 * R[6 + j]);
+    Jl1[j] = -(a11 * R[3 + j] + a12 * R[6 + j]);
+  }
+  if (kFirst) {
+    const float wf = w * P.free_[s];
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
 #pragma unroll
       for (int i = 0; i < 6; ++i) {
-        W18[(j * 6 + i) * OP + s] = wf * (Jc0[i] * Jl0[j] + Jc1[i] * Jl1[j]);
+        P.W18[(j * 6 + i) * P.OP + s] = wf * (Jc0[i] * Jl0[j] + Jc1[i] * Jl1[j]);
       }
     }
-    if (w == 0.0f) continue;
+  }
+  if (w == 0.0f) return;
+  if (kFirst) {
+    int idx = 0;
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
 #pragma unroll
-      for (int q = 0; q < 3; ++q) {
-        atomicAdd(&lm_acc[j * 3 + q][l], w * (Jl0[j] * Jl0[q] + Jl1[j] * Jl1[q]));
-      }
-      atomicAdd(&lm_acc[9 + j][l], -w * (Jl0[j] * rx + Jl1[j] * ry));
-    }
-    float* c = cam27 + cam * 27;
-    int idx = 0;
-#pragma unroll
-    for (int i = 0; i < 6; ++i) {
-#pragma unroll
-      for (int j = i; j < 6; ++j) {
-        atomicAdd(c + idx, w * (Jc0[i] * Jc0[j] + Jc1[i] * Jc1[j]));
-        ++idx;
-      }
+      for (int q = j; q < 3; ++q) a[idx++] = w * (Jl0[j] * Jl0[q] + Jl1[j] * Jl1[q]);
     }
 #pragma unroll
-    for (int i = 0; i < 6; ++i) atomicAdd(c + 21 + i, -w * (Jc0[i] * rx + Jc1[i] * ry));
+    for (int j = 0; j < 3; ++j) a[6 + j] = -w * (Jl0[j] * rx + Jl1[j] * ry);
   }
+  if (!in_range(cam, c0, ncam)) return;
+  float x[kD1Row];
+  int idx = 0;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+#pragma unroll
+    for (int j = i; j < 6; ++j) x[idx++] = w * (Jc0[i] * Jc0[j] + Jc1[i] * Jc1[j]);
+  }
+#pragma unroll
+  for (int i = 0; i < 6; ++i) x[21 + i] = -w * (Jc0[i] * rx + Jc1[i] * ry);
+  row_add<kD1Row, true>(table, cam - c0, x);
+}
+
+// lm[r][key] += a[r], r < 9: a landmark run's sums into the tile's table.
+__device__ __forceinline__ void lm_add(float* lm, int key, const float (&a)[kLmRow]) {
+#pragma unroll
+  for (int r = 0; r < kLmRow; ++r) atomicAdd(lm + r * kLm + key, a[r]);
+}
+
+__global__ void __launch_bounds__(kD1Threads, 1)
+d1_assemble_kernel(const __grid_constant__ D1Params P) {
+  extern __shared__ __align__(16) float table[];            // (cam_range, 27)
+  const int c0 = blockIdx.y * P.cam_range, ncam = min(P.cam_range, P.C - c0);
+  float* lm_tab = table + P.cam_range * kD1Row;             // (2, 9, 128)
+  table_zero(table, ncam * kD1Row);
+  table_zero(lm_tab, 2 * kLmRow * kLm);
   __syncthreads();
-  for (int i = threadIdx.x; i < 12 * kLm; i += blockDim.x) {
-    const int r = i / kLm, l = i % kLm;
-    hllbl[r * L_pad + lm0 + l] = lm_acc[r][l];
+  const float k[4] = {__ldg(P.kp), __ldg(P.kp + 1), __ldg(P.kp + 2), __ldg(P.kp + 3)};
+  const int t0 = static_cast<int>(static_cast<long long>(P.ntl) * blockIdx.x / gridDim.x);
+  const int t1 = static_cast<int>(static_cast<long long>(P.ntl) * (blockIdx.x + 1) / gridDim.x);
+  const bool first = blockIdx.y == 0;
+  for (int t = t0, it = 0; t < t1; ++t, ++it) {
+    const size_t base = static_cast<size_t>(t) * P.TP, lm0 = static_cast<size_t>(t) * kLm;
+    float* lm = lm_tab + (it & 1) * kLmRow * kLm;
+    if (first) {
+      // whole warps at a time (TP is a multiple of 32): warp_run_sums needs
+      // every lane
+      for (int kk = threadIdx.x; kk < P.TP; kk += blockDim.x) {
+        const size_t s = base + kk;
+        const int cam = P.camid[s], l = P.lmloc[s];
+        float a[kLmRow] = {};
+        d1_slot<true>(P, k, s, lm0 + l, cam, c0, ncam, table, a);
+        if (warp_run_sums(l, a)) {
+          bool any = false;
+#pragma unroll
+          for (int r = 0; r < kLmRow; ++r) any |= a[r] != 0.0f;
+          if (any) lm_add(lm, l, a);
+        }
+      }
+    } else {
+      for (int kk = threadIdx.x; kk < P.TP; kk += blockDim.x) {
+        const size_t s = base + kk;
+        const int cam = P.camid[s];
+        if (!in_range(cam, c0, ncam)) continue;
+        float a[kLmRow];
+        d1_slot<false>(P, k, s, lm0 + P.lmloc[s], cam, c0, ncam, table, a);
+      }
+    }
+    __syncthreads();
+    if (!first) continue;
+    // the tile's hllbl: rows j*3+q of Hll (both halves) and 9+j of bl
+    for (int i = threadIdx.x; i < kLmRow * kLm; i += blockDim.x) {
+      const int r = i / kLm;
+      const size_t g = lm0 + i % kLm;
+      const float v = lm[i];
+      lm[i] = 0.0f;
+      if (r < 6) {
+        const int j = r < 3 ? 0 : (r < 5 ? 1 : 2), q = r < 3 ? r : (r < 5 ? r - 2 : 2);
+        P.hllbl[(j * 3 + q) * P.L_pad + g] = v;
+        if (j != q) P.hllbl[(q * 3 + j) * P.L_pad + g] = v;
+      } else {
+        P.hllbl[(r + 3) * P.L_pad + g] = v;
+      }
+    }
   }
+  // the last __syncthreads() above (or the one after zeroing, for a block
+  // without tiles) follows every add into the table
+  table_flush(table, P.C, c0, ncam, kD1Row, P.partial);
 }
 
 // ---------------------------------------------------------------------------
@@ -391,7 +543,7 @@ d1_assemble_kernel(const int* __restrict__ camid, const int* __restrict__ lmloc,
 //    slot past the staging room, in a tile too wide for 8 blocks, from
 //    global memory), into the rank's u_part (3 x 128, two of them, one for
 //    odd tiles). Slots of one landmark are neighbours, so a warp first sums
-//    each run of one landmark (warp_run_sum) and the run's first lane takes
+//    each run of one landmark (warp_run_sums) and the run's first lane takes
 //    the 3 shared atomics: they no longer serialise on one address across
 //    the ~30 slots of a landmark.
 // 2. cluster.sync(); every rank sums the k ranks' u_part in rank order
@@ -551,7 +703,7 @@ s_apply_kernel(const int* __restrict__ camid, const int* __restrict__ lmloc,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     if (t0 < t1) stage_expect(bar, ks - k0);
   }
-  table_zero(table, ncam);
+  table_zero(table, ncam * 6);
   if (v_shared) {
     for (int i = threadIdx.x; i < C * 6; i += blockDim.x) v_s[i] = v[i];
   }
@@ -566,11 +718,11 @@ s_apply_kernel(const int* __restrict__ camid, const int* __restrict__ lmloc,
     for (int i = threadIdx.x; i < 3 * kLm; i += blockDim.x) up[i] = 0.0f;
     __syncthreads();
     mbar_wait(bar, static_cast<uint32_t>(it & 1));
-    // 1. A stage, whole warps at a time (warp_run_sum needs every lane)
+    // 1. A stage, whole warps at a time (warp_run_sums needs every lane)
     for (int kw = k0 + (threadIdx.x & ~31); kw < k1; kw += blockDim.x) {
       const int kk = kw + lane;
       int key = -1 - lane;                      // a lane past the end: a run of its own
-      float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
+      float a[3] = {0.0f, 0.0f, 0.0f};
       if (kk < k1) {
         int cam, l;
         float w[18];
@@ -596,23 +748,19 @@ s_apply_kernel(const int* __restrict__ camid, const int* __restrict__ lmloc,
 #pragma unroll
             for (int i = 0; i < 6; ++i) vc[i] = __ldg(v + cam * 6 + i);
           }
-          float acc[3];
 #pragma unroll
           for (int j = 0; j < 3; ++j) {
-            acc[j] = w[j * 6] * vc[0];
+            a[j] = w[j * 6] * vc[0];
 #pragma unroll
-            for (int i = 1; i < 6; ++i) acc[j] = acc[j] + w[j * 6 + i] * vc[i];
+            for (int i = 1; i < 6; ++i) a[j] = a[j] + w[j * 6 + i] * vc[i];
           }
-          a0 = acc[0];
-          a1 = acc[1];
-          a2 = acc[2];
         }
       }
-      if (warp_run_sum(key, a0, a1, a2) && key >= 0
-          && (a0 != 0.0f || a1 != 0.0f || a2 != 0.0f)) {
-        atomicAdd(&up[key], a0);
-        atomicAdd(&up[kLm + key], a1);
-        atomicAdd(&up[2 * kLm + key], a2);
+      if (warp_run_sums(key, a) && key >= 0
+          && (a[0] != 0.0f || a[1] != 0.0f || a[2] != 0.0f)) {
+        atomicAdd(&up[key], a[0]);
+        atomicAdd(&up[kLm + key], a[1]);
+        atomicAdd(&up[2 * kLm + key], a[2]);
       }
     }
     cluster.sync();
@@ -656,33 +804,50 @@ s_apply_kernel(const int* __restrict__ camid, const int* __restrict__ lmloc,
     }
   }
   cluster.sync();       // no rank leaves while another may read its u_part
-  table_flush(table, C, c0, ncam, partial);
+  table_flush(table, C, c0, ncam, 6, partial);
 }
 
 // ---------------------------------------------------------------------------
 // K5: per-camera upper triangle of sum_obs W Hinv[l] W^T.
 // ---------------------------------------------------------------------------
+//
+// As K7: one block an SM; block (x, y) takes the slots [OP x / X, OP (x+1) /
+// X) of the grid's X blocks along x, whatever tiles they lie in, and the
+// cameras of range y. Each slot reads its ids and W row in one go, gathers
+// its landmark's Hll^-1 (9 floats) through the read-only cache (a tile's
+// are 4.6 KB), and adds the 21 entries of W Hll^-1 W^T's upper triangle
+// into the block's camera table (21 floats a camera, 172,032 B at C =
+// 2048; up to 2767 cameras a range) by single f32 atomics, which the next
+// slots' loads overlap (paired, as in K3, they took ~6% longer).
+//
+// Measured on NVIDIA H100 80GB HBM3 cards at 700.00 W (chip_smoke.py phase
+// 10 and tools/torch_schur_probe.py; each run's numbers in PERF.md): ~0.14
+// ms a call at bench_gba's shapes against a byte bound of 0.0524 ms (~0.73
+// ms with a global atomic per slot and entry instead). Without its
+// camera sums (a wrong result, timed only) it takes ~0.077 ms: the rest is
+// the table's shared atomics, compare-and-swap loops on this card (as plain
+// shared stores, ~0.085 ms). 512 threads a block took ~0.21 ms.
+constexpr int kD2Threads = 1024;
+constexpr int kD2Row = 21;                          // a camera's S66 upper triangle
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kD2Threads, 1)
 d2_precond_kernel(const int* __restrict__ camid, const int* __restrict__ lmloc,
                   const float* __restrict__ W18, const float* __restrict__ H9,
-                  int TP, size_t OP, size_t L_pad, float* __restrict__ out) {
-  __shared__ float h_s[9][kLm];
-  const size_t lm0 = static_cast<size_t>(blockIdx.x) * kLm;
-  for (int i = threadIdx.x; i < 9 * kLm; i += blockDim.x) {
-    const int r = i / kLm, l = i % kLm;
-    h_s[r][l] = H9[r * L_pad + lm0 + l];
-  }
+                  int TP, size_t OP, size_t L_pad, int C, int cam_range,
+                  float* __restrict__ partial) {
+  extern __shared__ __align__(16) float table[];
+  const int c0 = blockIdx.y * cam_range, ncam = min(cam_range, C - c0);
+  table_zero(table, ncam * kD2Row);
   __syncthreads();
-  const size_t base = static_cast<size_t>(blockIdx.x) * TP;
-  for (int k = threadIdx.x; k < TP; k += blockDim.x) {
-    const size_t s = base + k;
-    float w[18];
-    if (!load_w(W18, OP, s, w)) continue;
+  const size_t s0 = OP * blockIdx.x / gridDim.x, s1 = OP * (blockIdx.x + 1) / gridDim.x;
+  for (size_t s = s0 + threadIdx.x; s < s1; s += blockDim.x) {
     const int cam = camid[s], l = lmloc[s];
+    float w[18];
+    if (!load_w(W18, OP, s, w) || !in_range(cam, c0, ncam)) continue;
+    const size_t lm = (s / TP) * kLm + l;
     float G[9];
 #pragma unroll
-    for (int q = 0; q < 9; ++q) G[q] = h_s[q][l];
+    for (int q = 0; q < 9; ++q) G[q] = __ldg(H9 + q * L_pad + lm);
     // WG[i][q] = sum_j W[i][j] G[j][q]
     float WG[6][3];
 #pragma unroll
@@ -692,17 +857,19 @@ d2_precond_kernel(const int* __restrict__ camid, const int* __restrict__ lmloc,
         WG[i][q] = w[i] * G[q] + w[6 + i] * G[3 + q] + w[12 + i] * G[6 + q];
       }
     }
-    float* c = out + cam * 21;
+    float x[kD2Row];
     int idx = 0;
 #pragma unroll
     for (int i = 0; i < 6; ++i) {
 #pragma unroll
       for (int j = i; j < 6; ++j) {
-        atomicAdd(c + idx, WG[i][0] * w[j] + WG[i][1] * w[6 + j] + WG[i][2] * w[12 + j]);
-        ++idx;
+        x[idx++] = WG[i][0] * w[j] + WG[i][1] * w[6 + j] + WG[i][2] * w[12 + j];
       }
     }
+    row_add<kD2Row, false>(table, cam - c0, x);
   }
+  __syncthreads();
+  table_flush(table, C, c0, ncam, kD2Row, partial);
 }
 
 // ---------------------------------------------------------------------------
@@ -749,7 +916,7 @@ apply_b_kernel(const int* __restrict__ camid, const int* __restrict__ lmloc,
                float* __restrict__ partial) {
   extern __shared__ __align__(16) float table[];
   const int c0 = blockIdx.y * cam_range, ncam = min(cam_range, C - c0);
-  table_zero(table, ncam);
+  table_zero(table, ncam * 6);
   __syncthreads();
   const size_t s0 = OP * blockIdx.x / gridDim.x, s1 = OP * (blockIdx.x + 1) / gridDim.x;
   for (size_t s = s0 + threadIdx.x; s < s1; s += blockDim.x) {
@@ -761,7 +928,7 @@ apply_b_kernel(const int* __restrict__ camid, const int* __restrict__ lmloc,
                      __ldg(u + 2 * L_pad + lm));
   }
   __syncthreads();
-  table_flush(table, C, c0, ncam, partial);
+  table_flush(table, C, c0, ncam, 6, partial);
 }
 
 // ---------------------------------------------------------------------------
@@ -839,12 +1006,22 @@ expand_streams_kernel(const int* __restrict__ camid, const int* __restrict__ lml
 
 inline cudaStream_t as_stream(void* s) { return static_cast<cudaStream_t>(s); }
 
-// K4's and K7's finishing pass over their (groups, C, 6) partial rows.
-int camera_sum(const float* partial, int groups, int C, float* out, cudaStream_t stream) {
-  const size_t n = static_cast<size_t>(C) * 6;
+// The finishing pass of K3, K4, K5 and K7 over (groups, C, k) partial rows.
+int camera_sum(const float* partial, int groups, int C, int k, float* out,
+               cudaStream_t stream) {
+  const size_t n = static_cast<size_t>(C) * k;
   const unsigned blocks = static_cast<unsigned>((n + kSumCols - 1) / kSumCols);
   camera_sum_kernel<<<blocks, dim3(kSumCols, kSumRows), 0, stream>>>(partial, groups, n, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Whether a camera-table launch's geometry is one the card takes: a
+// positive grid, at most 65,535 camera ranges, and shared_bytes at least
+// `need` and at most what a block may have.
+bool table_geometry_ok(int C, int grid_x, int cam_range, int shared_bytes, long long need) {
+  return C > 0 && grid_x > 0 && cam_range > 0
+         && (C + static_cast<long long>(cam_range) - 1) / cam_range <= 65535
+         && shared_bytes >= need && shared_bytes <= 232448;
 }
 
 }  // namespace
@@ -852,23 +1029,40 @@ int camera_sum(const float* partial, int groups, int C, float* out, cudaStream_t
 extern "C" {
 
 // Common arguments: camid, lmloc (OP,) i32 with OP = ntl * TP; W18 (18, OP)
-// f32 J-major; H9 (9, L_pad) f32 with L_pad = ntl * 128. Outputs that take
-// atomics are zeroed by the caller.
+// f32 J-major; H9 (9, L_pad) f32 with L_pad = ntl * 128. K8's output, which
+// takes atomics, is zeroed by the caller. Where an entry point takes a launch
+// geometry (schur_cuda.camera_reduction_geometry): grid_x blocks along x,
+// ceil(C / cam_range) camera ranges along y, shared_bytes of dynamic shared
+// memory a block; its partial (grid_x, C, k) is scratch, written whole.
 
 // uv (OP, 2); is2, valid, free (OP,); kp (4,) = fx, fy, cx, cy; pose (C, 12)
 // = R row-major then t; X (L_pad, 3) -> W18 (18, OP), aux (3, OP),
-// hllbl (12, L_pad), cam27 (C, 27) (zeroed).
+// hllbl (12, L_pad), cam27 (C, 27). TP a multiple of 32; pose 16-byte and
+// uv 8-byte aligned; shared_bytes >= 108 cam_range + 9,216.
 int mcs_d1_assemble(const int* camid, const int* lmloc, const float* uv,
                     const float* is2, const float* valid, const float* free_,
                     const float* kp, const float* pose, const float* X, int ntl,
-                    int TP, float* W18, float* aux, float* hllbl, float* cam27,
+                    int TP, float* W18, float* aux, float* hllbl, float* cam27, int C,
+                    int grid_x, int cam_range, int shared_bytes, float* partial,
                     void* stream) {
-  if (ntl <= 0 || TP <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long need = 4LL * kD1Row * cam_range + kD1FixedBytes;
+  if (ntl <= 0 || TP <= 0 || TP % 32 || reinterpret_cast<uintptr_t>(pose) % 16
+      || reinterpret_cast<uintptr_t>(uv) % 8
+      || !table_geometry_ok(C, grid_x, cam_range, shared_bytes, need)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t e = cudaFuncSetAttribute(d1_assemble_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       shared_bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const size_t OP = static_cast<size_t>(ntl) * TP, L_pad = static_cast<size_t>(ntl) * kLm;
-  d1_assemble_kernel<<<ntl, kThreads, 0, as_stream(stream)>>>(
-      camid, lmloc, uv, is2, valid, free_, kp, pose, X, TP, OP, L_pad, W18, aux,
-      hllbl, cam27);
-  return static_cast<int>(cudaGetLastError());
+  const D1Params P = {camid, lmloc, uv, is2, valid, free_, kp, pose, X, ntl, TP, C,
+                      cam_range, OP, L_pad, W18, aux, hllbl, partial};
+  const dim3 grid(grid_x, (C + cam_range - 1) / cam_range, 1);
+  d1_assemble_kernel<<<grid, kD1Threads, shared_bytes, as_stream(stream)>>>(P);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return camera_sum(partial, grid_x, C, kD1Row, cam27, as_stream(stream));
 }
 
 // v (C, 6) -> out (C, 6). The launch geometry comes from the wrapper
@@ -913,7 +1107,7 @@ int mcs_s_apply(const int* camid, const int* lmloc, const float* W18,
   e = cudaLaunchKernelEx(&cfg, s_apply_kernel, camid, lmloc, W18, v, H9, ntl, TP, OP,
                          L_pad, C, cam_range, share, staged, v_shared, partial);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return camera_sum(partial, grid_x, C, out, as_stream(stream));
+  return camera_sum(partial, grid_x, C, 6, out, as_stream(stream));
 }
 
 // How many of K4's clusters of `cluster` blocks with shared_bytes each can
@@ -939,14 +1133,25 @@ int mcs_s_apply_active_clusters(int cluster, int shared_bytes) {
   return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
-// -> out (C, 21) (zeroed).
+// -> out (C, 21); shared_bytes >= 84 cam_range.
 int mcs_d2_precond(const int* camid, const int* lmloc, const float* W18,
-                   const float* H9, int ntl, int TP, float* out, void* stream) {
-  if (ntl <= 0 || TP <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                   const float* H9, int ntl, int TP, float* out, int C, int grid_x,
+                   int cam_range, int shared_bytes, float* partial, void* stream) {
+  if (ntl <= 0 || TP <= 0
+      || !table_geometry_ok(C, grid_x, cam_range, shared_bytes, 4LL * kD2Row * cam_range)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t e = cudaFuncSetAttribute(d2_precond_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       shared_bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const size_t OP = static_cast<size_t>(ntl) * TP, L_pad = static_cast<size_t>(ntl) * kLm;
-  d2_precond_kernel<<<ntl, kThreads, 0, as_stream(stream)>>>(
-      camid, lmloc, W18, H9, TP, OP, L_pad, out);
-  return static_cast<int>(cudaGetLastError());
+  const dim3 grid(grid_x, (C + cam_range - 1) / cam_range, 1);
+  d2_precond_kernel<<<grid, kD2Threads, shared_bytes, as_stream(stream)>>>(
+      camid, lmloc, W18, H9, TP, OP, L_pad, C, cam_range, partial);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return camera_sum(partial, grid_x, C, kD2Row, out, as_stream(stream));
 }
 
 // v (C, 6) -> u (3, L_pad).
@@ -966,8 +1171,8 @@ int mcs_apply_a(const int* camid, const int* lmloc, const float* W18,
 int mcs_apply_b(const int* camid, const int* lmloc, const float* W18,
                 const float* u, int ntl, int TP, float* out, int C, int grid_x,
                 int cam_range, int shared_bytes, float* partial, void* stream) {
-  if (ntl <= 0 || TP <= 0 || C <= 0 || grid_x <= 0 || cam_range <= 0
-      || shared_bytes < 24LL * cam_range) {
+  if (ntl <= 0 || TP <= 0
+      || !table_geometry_ok(C, grid_x, cam_range, shared_bytes, 24LL * cam_range)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t OP = static_cast<size_t>(ntl) * TP, L_pad = static_cast<size_t>(ntl) * kLm;
@@ -980,7 +1185,7 @@ int mcs_apply_b(const int* camid, const int* lmloc, const float* W18,
       camid, lmloc, W18, u, TP, OP, L_pad, C, cam_range, partial);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  return camera_sum(partial, grid_x, C, out, as_stream(stream));
+  return camera_sum(partial, grid_x, C, 6, out, as_stream(stream));
 }
 
 // Arguments of mcs_d1_assemble without free -> out (0-d, zeroed) += sum rho.

@@ -30,10 +30,10 @@ Each wrapper has a plain torch version beside it (``*_ref``: per-slot
 tensor arithmetic plus ``index_add_``). A CPU tensor goes to the plain
 version; a CUDA tensor launches the kernel or raises. ``launches`` on each
 wrapper counts kernel launches (never plain-version calls). Camera-side
-sums are taken by atomics in no fixed order (K4 and K7: shared-memory
-atomics into a camera table in each block, whose rows a finishing pass
-adds in block order; ``camera_reduction_geometry`` sizes their launches),
-so kernel and plain version agree to f32 rounding of sums, not bitwise.
+sums (K3, K4, K5, K7) are taken by shared-memory atomics in no fixed order
+into a camera table in each block, whose rows a finishing pass adds in
+block order (``camera_reduction_geometry`` sizes these launches), so
+kernel and plain version agree to f32 rounding of sums, not bitwise.
 """
 from __future__ import annotations
 
@@ -152,10 +152,10 @@ def build() -> str:
 def _library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     return cuda_build.load(SOURCE, {
-        "mcs_d1_assemble": [p] * 9 + [i, i] + [p] * 5,
+        "mcs_d1_assemble": [p] * 9 + [i, i] + [p] * 4 + [i] * 4 + [p, p],
         "mcs_s_apply": [p] * 5 + [i, i, p] + [i] * 8 + [p, p],
         "mcs_s_apply_active_clusters": [i, i],
-        "mcs_d2_precond": [p] * 4 + [i, i, p, p],
+        "mcs_d2_precond": [p] * 4 + [i, i, p] + [i] * 4 + [p, p],
         "mcs_apply_a": [p] * 5 + [i, i, p, p],
         "mcs_apply_b": [p] * 4 + [i, i, p] + [i] * 4 + [p, p],
         "mcs_d0_cost": [p] * 8 + [i, i, p, p],
@@ -282,7 +282,10 @@ def d1_assemble_ref(camid, lmloc, uv, is2, valid, free, kp, pose, X, *, TP: int)
 
 
 def d1_assemble(camid, lmloc, uv, is2, valid, free, kp, pose, X, *, TP: int):
-    """One fused linearisation pass over the tile stream.
+    """K3: one fused linearisation pass over the tile stream. A persistent
+    grid keeps each tile whole in one block, its landmark sums in shared
+    memory, and adds the camera sums into a camera table in each block's
+    shared memory (no global atomic per slot).
 
     camid, lmloc (OP,) i32; uv (OP, 2); is2, valid, free (OP,) f32 (valid
     and free are 0/1); kp (4,) = fx, fy, cx, cy; pose (C, 12) = R row-major
@@ -305,17 +308,23 @@ def d1_assemble(camid, lmloc, uv, is2, valid, free, kp, pose, X, *, TP: int):
     _check(X, "X", f32, (L_pad, 3), dev)
     if dev.type == "cpu":
         return d1_assemble_ref(camid, lmloc, uv, is2, valid, free, kp, pose, X, TP=TP)
+    if pose.data_ptr() % 16 or uv.data_ptr() % 8:
+        raise ValueError("d1_assemble: pose must be 16-byte and uv 8-byte aligned "
+                         "(vector loads)")
     lib = _library()
+    geo = launch_geometry("d1_assemble", C, TP, ntl, dev)
     with torch.cuda.device(dev):
         W18 = torch.empty((18, OP), dtype=f32, device=dev)
         aux = torch.empty((3, OP), dtype=f32, device=dev)
         hllbl = torch.empty((12, L_pad), dtype=f32, device=dev)
-        cam27 = torch.zeros((C, D1_CAM_ROWS), dtype=f32, device=dev)
+        cam27 = torch.empty((C, D1_CAM_ROWS), dtype=f32, device=dev)
+        partial = torch.empty((geo.grid, C, D1_CAM_ROWS), dtype=f32, device=dev)
         err = lib.mcs_d1_assemble(
             camid.data_ptr(), lmloc.data_ptr(), uv.data_ptr(), is2.data_ptr(),
             valid.data_ptr(), free.data_ptr(), kp.data_ptr(), pose.data_ptr(),
             X.data_ptr(), ntl, TP, W18.data_ptr(), aux.data_ptr(),
-            hllbl.data_ptr(), cam27.data_ptr(), _stream())
+            hllbl.data_ptr(), cam27.data_ptr(), C, geo.grid, geo.cam_range,
+            geo.shared_bytes, partial.data_ptr(), _stream())
     cuda_build.check_launch(err, "d1_assemble")
     d1_assemble.launches += 1
     return W18, aux, hllbl, cam27
@@ -325,12 +334,16 @@ d1_assemble.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# The camera reduction of K4 and K7: launch geometry
+# The camera reduction of K3, K4, K5 and K7: launch geometry
 # ---------------------------------------------------------------------------
 
 SHARED_BYTES_MAX = 232_448      # dynamic shared memory a block may have (sm_90)
 MAX_CLUSTER = 8                 # the portable thread-block cluster size
-CAM_ROW_BYTES = 24              # a camera's 6 f32 sums in a block's table
+CAM_ROW_BYTES = 24              # a camera's 6 f32 sums in K4's and K7's tables
+# a camera's row in each kernel's table: K3's 27 and K5's 21 f32 sums
+ROW_BYTES = {"s_apply": CAM_ROW_BYTES, "apply_b": CAM_ROW_BYTES,
+             "d1_assemble": 4 * D1_CAM_ROWS, "d2_precond": 4 * D2_CAM_ROWS}
+D1_FIXED_BYTES = 2 * 9 * LM_BLOCK * 4           # K3's two (9, 128) landmark tables
 STAGE_SLOT_BYTES = 80           # a slot staged by K4: 18 W floats, camid, lmloc
 STAGE_TILE_BYTES = 9 * LM_BLOCK * 4             # and its tile's H9
 K4_FIXED_BYTES = 9 * LM_BLOCK * 4 + 8           # K4's two u_part, u_s, its mbarrier
@@ -338,19 +351,20 @@ K4_TABLE_BYTES_MAX = SHARED_BYTES_MAX // 2      # the rest is left to staging
 
 
 class CameraReduction(NamedTuple):
-    """Launch geometry of K4 (``s_apply``) or K7 (``apply_b``) in
-    csrc/schur.cu. Block (x, y) of the grid takes the work ``work_range(x)``
-    (tiles for K4, slots for K7) and the cameras ``cameras(y)``; K4's
-    cluster rank r takes the slots ``slots(r)`` of each of its tiles and
-    stages the first ``staged`` of them; with ``v_shared`` each K4 block
-    keeps v (C, 6) in shared memory."""
+    """Launch geometry of K3 (``d1_assemble``), K4 (``s_apply``), K5
+    (``d2_precond``) or K7 (``apply_b``) in csrc/schur.cu. Block (x, y) of
+    the grid takes the work ``work_range(x)`` (tiles for K3 and K4, slots
+    for K5 and K7) and the cameras ``cameras(y)``; K4's cluster rank r
+    takes the slots ``slots(r)`` of each of its tiles and stages the first
+    ``staged`` of them; with ``v_shared`` each K4 block keeps v (C, 6) in
+    shared memory."""
 
     kernel: str
-    work: int               # K4: tiles (ntl); K7: slots (OP)
+    work: int               # K3, K4: tiles (ntl); K5, K7: slots (OP)
     TP: int
     C: int
-    grid: int               # blocks along x: rows of the (grid, C, 6) partial sums
-    cluster: int            # blocks a cluster (K4; 1 for K7)
+    grid: int               # blocks along x: rows of the (grid, C, k) partial sums
+    cluster: int            # blocks a cluster (K4; 1 for the others)
     cam_range: int          # cameras in one block's table
     share: int              # K4: slots of a tile each cluster rank takes
     staged: int             # K4: of those, how many it keeps in shared memory
@@ -358,12 +372,18 @@ class CameraReduction(NamedTuple):
     shared_bytes: int       # dynamic shared memory a block
 
     @property
+    def row_bytes(self) -> int:
+        """Bytes of a camera's row in the kernel's table."""
+        return ROW_BYTES[self.kernel]
+
+    @property
     def ranges(self) -> int:
         """Blocks along y: camera ranges."""
         return -(-self.C // self.cam_range)
 
     def work_range(self, x: int) -> range:
-        """Tiles (K4) or slots (K7) of block x, as the kernel computes them."""
+        """Tiles (K3, K4) or slots (K5, K7) of block x, as the kernel
+        computes them."""
         parts, p = self.grid // self.cluster, x // self.cluster
         return range(self.work * p // parts, self.work * (p + 1) // parts)
 
@@ -376,10 +396,10 @@ class CameraReduction(NamedTuple):
         return range(k0, min(k0 + self.share, self.TP))
 
 
-def _cam_range(C: int, table_bytes_max: int) -> int:
+def _cam_range(C: int, table_bytes_max: int, row_bytes: int = CAM_ROW_BYTES) -> int:
     """Cameras a table holds: C, or C split evenly into the fewest ranges
-    whose tables fit ``table_bytes_max``."""
-    ranges = -(-C // (table_bytes_max // CAM_ROW_BYTES))
+    whose tables, row_bytes a camera, fit ``table_bytes_max``."""
+    ranges = -(-C // (table_bytes_max // row_bytes))
     return -(-C // ranges)
 
 
@@ -402,26 +422,33 @@ def _k4_staging(TP: int, room: int, v_bytes: int):
 @functools.lru_cache(maxsize=256)
 def camera_reduction_geometry(kernel: str, C: int, TP: int, ntl: int, n_sm: int,
                               max_clusters: Optional[int] = None) -> CameraReduction:
-    """The launch geometry of ``kernel`` ("s_apply" for K4, "apply_b" for
-    K7) on C cameras and ntl tiles of TP slots, on a card of n_sm SMs.
+    """The launch geometry of ``kernel`` ("d1_assemble" for K3, "s_apply"
+    for K4, "d2_precond" for K5, "apply_b" for K7) on C cameras and ntl
+    tiles of TP slots, on a card of n_sm SMs.
 
-    K7: one block an SM (split between the camera ranges), each over an
-    even share of the OP slots (a block may get none); its camera table may fill the block's whole
-    shared memory. K4: the camera table takes at most half the block's
-    shared memory; the cluster size, the staging and whether v is kept in
-    shared memory come from ``_k4_staging``; clusters take even shares of
-    the tiles, as many as the card holds at once (``max_clusters``, by
-    default one block an SM).
+    K5 and K7: one block an SM (split between the camera ranges), each
+    over an even share of the OP slots (a block may get none); the camera
+    table may fill the block's whole shared memory. K3: likewise, over an
+    even share of the tiles (no block without one), the table beside K3's
+    two landmark tables. None of the four has static shared memory, so
+    ``shared_bytes`` is all a block takes. K4: the camera table takes at
+    most half the block's shared memory; the cluster size, the staging and
+    whether v is kept in shared memory come from ``_k4_staging``; clusters
+    take even shares of the tiles, as many as the card holds at once
+    (``max_clusters``, by default one block an SM).
     """
     if C <= 0 or TP <= 0 or ntl <= 0 or n_sm <= 0:
         raise ValueError(f"no geometry for C={C}, TP={TP}, ntl={ntl}, n_sm={n_sm}")
-    if kernel == "apply_b":
-        cam_range = _cam_range(C, SHARED_BYTES_MAX)
-        ranges = -(-C // cam_range)
-        return CameraReduction(kernel, ntl * TP, TP, C, max(1, n_sm // ranges), 1,
-                               cam_range, 0, 0, False, cam_range * CAM_ROW_BYTES)
-    if kernel != "s_apply":
+    if kernel not in ROW_BYTES:
         raise ValueError(f"unknown kernel {kernel!r}")
+    if kernel != "s_apply":
+        k3, row = kernel == "d1_assemble", ROW_BYTES[kernel]
+        fixed = D1_FIXED_BYTES if k3 else 0
+        cam_range = _cam_range(C, SHARED_BYTES_MAX - fixed, row)
+        grid = max(1, n_sm // -(-C // cam_range))
+        return CameraReduction(kernel, ntl if k3 else ntl * TP, TP, C,
+                               min(grid, ntl) if k3 else grid, 1, cam_range, 0, 0, False,
+                               fixed + cam_range * row)
     cam_range = _cam_range(C, K4_TABLE_BYTES_MAX)
     ranges = -(-C // cam_range)
     table = cam_range * CAM_ROW_BYTES
@@ -621,17 +648,22 @@ def d2_precond_ref(camid, lmloc, W18, H9, C: int, *, TP: int):
 
 
 def d2_precond(camid, lmloc, W18, H9, C: int, *, TP: int):
-    """K5: (C, 21) per-camera upper triangle (PAIRS6) of sum W Hll^-1 W^T."""
+    """K5: (C, 21) per-camera upper triangle (PAIRS6) of sum W Hll^-1 W^T,
+    summed into a camera table in each block's shared memory as K7's."""
     ntl = _check_w(camid, lmloc, W18, TP)
     dev, L_pad = camid.device, ntl * LM_BLOCK
     _check(H9, "H9", torch.float32, (9, L_pad), dev)
     if dev.type == "cpu":
         return d2_precond_ref(camid, lmloc, W18, H9, C, TP=TP)
     lib = _library()
+    geo = launch_geometry("d2_precond", C, TP, ntl, dev)
     with torch.cuda.device(dev):
-        out = torch.zeros((C, D2_CAM_ROWS), dtype=torch.float32, device=dev)
+        out = torch.empty((C, D2_CAM_ROWS), dtype=torch.float32, device=dev)
+        partial = torch.empty((geo.grid, C, D2_CAM_ROWS), dtype=torch.float32, device=dev)
         err = lib.mcs_d2_precond(camid.data_ptr(), lmloc.data_ptr(), W18.data_ptr(),
-                                 H9.data_ptr(), ntl, TP, out.data_ptr(), _stream())
+                                 H9.data_ptr(), ntl, TP, out.data_ptr(), C, geo.grid,
+                                 geo.cam_range, geo.shared_bytes, partial.data_ptr(),
+                                 _stream())
     cuda_build.check_launch(err, "d2_precond")
     d2_precond.launches += 1
     return out

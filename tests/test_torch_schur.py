@@ -228,18 +228,22 @@ def test_sym6_from_tri_matches_jax():
                                   np.asarray(schur_pallas.sym6_from_tri(jnp.asarray(tri))))
 
 
-# K4's and K7's launch geometry (csrc/schur.cu's persistent grids): C from
-# 1 to 100,000 cameras, tiles from 128 to 25,600 slots, 1 to 512 tiles
+# K3's, K4's, K5's and K7's launch geometry (csrc/schur.cu's persistent
+# grids): C from 1 to 100,000 cameras, tiles from 128 to 25,600 slots, 1 to
+# 512 tiles
 @pytest.mark.parametrize("C,TP,ntl", [
     (1, 128, 1), (5, 128, 3), (130, 128, 1), (2048, 4224, 512), (12000, 4224, 2),
     (2048, 19200, 40), (2048, 25600, 2), (5, 25600, 2), (100_000, 256, 7),
 ])
-@pytest.mark.parametrize("kernel", ["s_apply", "apply_b"])
+@pytest.mark.parametrize("kernel", ["s_apply", "apply_b", "d1_assemble", "d2_precond"])
 def test_camera_reduction_geometry_covers_everything_once(kernel, C, TP, ntl):
     geo = schur_cuda.camera_reduction_geometry(kernel, C, TP, ntl, 132)
+    # none of these kernels has static shared memory: shared_bytes is all
     assert geo.shared_bytes <= schur_cuda.SHARED_BYTES_MAX == 232_448
     assert 1 <= geo.cluster <= 8 and geo.grid % geo.cluster == 0
-    assert geo.cam_range * schur_cuda.CAM_ROW_BYTES <= geo.shared_bytes
+    assert geo.row_bytes == {"s_apply": 24, "apply_b": 24, "d1_assemble": 108,
+                             "d2_precond": 84}[kernel]
+    assert geo.cam_range * geo.row_bytes <= geo.shared_bytes
     # every camera in exactly one range
     cams = [geo.cameras(y) for y in range(geo.ranges)]
     assert cams[0].start == 0 and cams[-1].stop == C
@@ -250,8 +254,16 @@ def test_camera_reduction_geometry_covers_everything_once(kernel, C, TP, ntl):
     assert all(geo.work_range(x) == parts[x // geo.cluster] for x in range(geo.grid))
     assert parts[0].start == 0 and parts[-1].stop == geo.work
     assert all(a.stop == b.start for a, b in zip(parts, parts[1:]))
-    if kernel == "apply_b":
+    if kernel in ("apply_b", "d2_precond"):
         assert geo.work == ntl * TP and geo.cluster == 1
+        assert geo.shared_bytes == geo.cam_range * geo.row_bytes
+        return
+    if kernel == "d1_assemble":
+        # a tile whole in one block, and no block without one
+        assert geo.work == ntl and geo.cluster == 1 and geo.grid <= ntl
+        assert all(len(geo.work_range(x)) > 0 for x in range(geo.grid))
+        assert geo.shared_bytes == geo.cam_range * 108 + schur_cuda.D1_FIXED_BYTES == \
+            geo.cam_range * 108 + 2 * 9 * 128 * 4
         return
     assert geo.work == ntl
     # every slot of a tile in exactly one rank's share; staging fits
@@ -285,5 +297,18 @@ def test_camera_reduction_geometry_at_bench_gba_shapes():
     assert schur_cuda.camera_reduction_geometry("s_apply", 2048, 4224, 5, 132).grid == 15
     k7 = schur_cuda.camera_reduction_geometry("apply_b", 2048, 4224, 512, 132)
     assert (k7.grid, k7.ranges, k7.shared_bytes) == (132, 1, 2048 * 24)
+    # K3 and K5: one block an SM, one camera range, the whole (C, 27) or
+    # (C, 21) table in each block (K3's beside its two landmark tables)
+    k3 = schur_cuda.camera_reduction_geometry("d1_assemble", 2048, 4224, 512, 132)
+    assert (k3.grid, k3.work, k3.ranges, k3.cam_range, k3.shared_bytes) == \
+        (132, 512, 1, 2048, 221_184 + 9_216)
+    k5 = schur_cuda.camera_reduction_geometry("d2_precond", 2048, 4224, 512, 132)
+    assert (k5.grid, k5.work, k5.ranges, k5.cam_range, k5.shared_bytes) == \
+        (132, 2_162_688, 1, 2048, 172_032)
+    # the edge shape C = 12,000 splits both tables into even ranges
+    k3 = schur_cuda.camera_reduction_geometry("d1_assemble", 12000, 4224, 2, 132)
+    k5 = schur_cuda.camera_reduction_geometry("d2_precond", 12000, 4224, 2, 132)
+    assert (k3.ranges, k3.cam_range, k3.grid) == (6, 2000, 2)
+    assert (k5.ranges, k5.cam_range, k5.grid) == (5, 2400, 26)
     with pytest.raises(ValueError):
         schur_cuda.camera_reduction_geometry("apply_a", 2048, 4224, 512, 132)
