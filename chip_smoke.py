@@ -9,12 +9,16 @@ levels, 1024 feature slots, an 8192-landmark map):
    each source, started together;
 3. K1 (masked_corner_score) against its plain version at all 8 pyramid
    level shapes, on a rendered frame and on a random image: bitwise;
-4. K2 (blur_and_moments) likewise: blur within 1e-3, moments within 1.0;
+4. K2 (blur_and_moments_levels, one launch over all 8 levels) likewise,
+   on every level: blur within 1e-3, moments within 1.0; and the one-level
+   blur_and_moments at one odd shape;
 5. track 20 rendered frames with the port's Tracker; every frame keeps
    >= 15 inliers, the final camera-centre error is within 0.10 m of the
-   truth, and each kernel was launched 20 x 8 times;
+   truth, K1 was launched 20 x 8 times and K2 20 times (once a frame);
 6. time the step with the kernels and with their plain versions, and each
-   kernel alone against its plain version, its bound and a library call.
+   kernel alone against its plain version, its bound and a library call
+   (K2 a frame in one launch, and each level alone through the one-level
+   wrapper).
 
 The server's tile-stream GBA at the operating point of bench.py:bench_gba
 (2048 keyframes, 65,536 landmarks, 2,048,000 observations):
@@ -31,11 +35,13 @@ The server's tile-stream GBA at the operating point of bench.py:bench_gba
 10. LM iterations/s on bench_gba's exact problem (1-iteration warm-up,
     then 10 iterations), each of K3-K7 alone against its plain version, its
     bound and a library call; K3's, K4's, K5's and K7's launch geometry;
-    K3, K4, K5, K7 and the plan-form apply_b and schur_apply at the edge
-    shapes of EDGE_CASES (C up to 12,000, TP from 128 to 25,600, a tile of
-    pad slots only), each called twice, within 1e-4 of max-abs of the plain
-    version and of each other (K3 part by part, its per-slot outputs bitwise
-    equal between the calls); and a torch.profiler split of one iteration.
+    K3, K4, K5, K6, K7 and the plan-form apply_a, apply_b and schur_apply
+    at the edge shapes of EDGE_CASES (C up to 12,000, TP from 128 to
+    25,600, a tile of pad slots only), each called twice, within 1e-4 of
+    max-abs of the plain version and of each other (K3 part by part, its
+    per-slot outputs bitwise equal between the calls; whether K6's two
+    calls are bitwise equal is printed); and a torch.profiler split of one
+    iteration.
 
 The dual-layout matrix-free GBA on the same problem (entry.
 matrix_free_gba_entry; its plan has the tile plan's 2,162,688 slots):
@@ -90,6 +96,7 @@ N_FRAMES = 20
 MIN_INLIERS = 15
 MAX_FINAL_ERR_M = 0.10
 K2_ATOL = (1e-3, 1.0, 1.0)   # blur, m10, m01
+K2_ODD_SHAPE = (97, 131)     # the one-level wrapper's shape in phase 4
 GBA_ITERS = 10
 GBA_BOUNDS = dict(cost_rtol=1e-3, Tcw_atol=1e-3, Xw_atol=5e-3)
 # K3-K7 against their plain versions, relative to each output's max-abs:
@@ -311,13 +318,13 @@ def plain_kernels():
     tensors), for timing the step without the kernels."""
     from motioncheck_ccm_slam_tpu_torch.ops import fast_cuda
 
-    saved = fast_cuda.masked_corner_score, fast_cuda.blur_and_moments
+    saved = fast_cuda.masked_corner_score, fast_cuda.blur_and_moments_levels
     fast_cuda.masked_corner_score = fast_cuda.masked_corner_score_ref
-    fast_cuda.blur_and_moments = fast_cuda.blur_and_moments_ref
+    fast_cuda.blur_and_moments_levels = fast_cuda.blur_and_moments_levels_ref
     try:
         yield
     finally:
-        fast_cuda.masked_corner_score, fast_cuda.blur_and_moments = saved
+        fast_cuda.masked_corner_score, fast_cuda.blur_and_moments_levels = saved
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -390,7 +397,8 @@ def k2_library_weight(device):
     7x7 outer product centred, each moment map's low-rank factors summed."""
     from motioncheck_ccm_slam_tpu_torch.ops import fast_cuda
 
-    taps, r = fast_cuda._device_taps(device, 15)
+    host, r = fast_cuda.k2_taps()
+    taps = torch.from_numpy(host).to(device)
     kb = taps[:7]
     kh = taps[7:7 + 62 * r].reshape(2 * r, 31)
     kv = taps[7 + 62 * r:].reshape(2 * r, 31)
@@ -499,13 +507,14 @@ def k3_k5_edge_errors(C: int, plan, W, H9, state) -> dict:
 
 
 def edge_products(device) -> dict:
-    """K3, K4, K5, K7 and the plan-form apply_b and schur_apply against
-    their plain versions at EDGE_CASES' shapes, each called twice: both
-    calls within SUM_RTOL of the plain version's max-abs, and of each other
-    (K3 part by part, its inlier flags differing from the plain version's
-    on at most 1e-4 of the slots or one slot: a chi2 within rounding of the
-    gate). Returns case -> (K4's geometry, K7's geometry, name -> worst
-    relative error)."""
+    """K3, K4, K5, K6, K7 and the plan-form apply_a, apply_b and
+    schur_apply against their plain versions at EDGE_CASES' shapes, each
+    called twice: both calls within SUM_RTOL of the plain version's
+    max-abs, and of each other (K3 part by part, its inlier flags differing
+    from the plain version's on at most 1e-4 of the slots or one slot: a
+    chi2 within rounding of the gate). Returns case -> (K4's geometry, K7's
+    geometry, name -> worst relative error, name -> whether K6's two calls,
+    raw and plan-form, were bitwise equal)."""
     from motioncheck_ccm_slam_tpu_torch.ops import schur_cuda
 
     out = {}
@@ -515,6 +524,10 @@ def edge_products(device) -> dict:
         calls = {
             "s_apply": (lambda: schur_cuda.s_apply(*ids, v, H9, TP=plan.TP),
                         lambda: schur_cuda.s_apply_ref(*ids, v, H9, TP=plan.TP)),
+            "apply_a_raw": (lambda: schur_cuda.apply_a_raw(*ids, v, H9, TP=plan.TP),
+                            lambda: schur_cuda.apply_a_raw_ref(*ids, v, H9, TP=plan.TP)),
+            "apply_a": (lambda: schur_cuda.apply_a(plan, W, v, H9),
+                        lambda: schur_cuda.apply_a_ref(plan, W, v, H9)),
             "apply_b_raw": (lambda: schur_cuda.apply_b_raw(*ids, u, C, TP=plan.TP),
                             lambda: schur_cuda.apply_b_raw_ref(*ids, u, C, TP=plan.TP)),
             "apply_b": (lambda: schur_cuda.apply_b(plan, W, u, C),
@@ -522,12 +535,14 @@ def edge_products(device) -> dict:
             "schur_apply": (lambda: schur_cuda.schur_apply(plan, W, v, H9),
                             lambda: schur_cuda.schur_apply_ref(plan, W, v, H9)),
         }
-        errs = {}
+        errs, bitwise = {}, {}
         for k, (kern, plain) in calls.items():
             a, b = kern(), kern()
             ref = plain()
             torch.cuda.synchronize()
             errs[k] = max(relmax(a, ref), relmax(b, ref), relmax(a, b))
+            if k.startswith("apply_a"):
+                bitwise[k] = torch.equal(a, b)
             check(bool(a.isfinite().all()) and errs[k] <= SUM_RTOL,
                   f"{k} at edge shape {name} off its plain version or its own second "
                   f"call by {errs[k]:.3g} > {SUM_RTOL}")
@@ -541,19 +556,20 @@ def edge_products(device) -> dict:
         errs.update(k35, **{"d1_assemble.inlier_flips": flips})
         geo = {k: schur_cuda.launch_geometry(k, C, plan.TP, plan.ntl, device)
                for k in ("s_apply", "apply_b", "d1_assemble", "d2_precond")}
-        out[name] = (geo["s_apply"], geo["apply_b"], errs)
+        out[name] = (geo["s_apply"], geo["apply_b"], errs, bitwise)
         print(f"phase 10 edge shape {name}: C={C} TP={plan.TP} ntl={plan.ntl}; K4 cluster "
               f"{geo['s_apply'].cluster}, staged {geo['s_apply'].staged} of "
               f"{geo['s_apply'].share} slots a rank, v in shared memory "
               f"{geo['s_apply'].v_shared}, {geo['s_apply'].ranges} camera range(s), "
               f"{geo['s_apply'].shared_bytes} B; camera ranges K7 {geo['apply_b'].ranges}, "
-              f"K3 {geo['d1_assemble'].ranges}, K5 {geo['d2_precond'].ranges}; worst "
-              "relative error " + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()))
+              f"K3 {geo['d1_assemble'].ranges}, K5 {geo['d2_precond'].ranges}; K6's two calls "
+              f"bitwise equal {bitwise}; worst relative error "
+              + ", ".join(f"{k} {e:.3g}" for k, e in errs.items()))
         if name == "c12000_tp4224":
             check(all(g.ranges > 1 for g in geo.values()),
                   "C = 12,000 did not split every camera table")
     # every way K4 stages: v in shared memory or not, a tile whole or in part
-    ways = {(g4.v_shared, g4.staged == g4.share) for g4, _, _ in out.values()}
+    ways = {(g4.v_shared, g4.staged == g4.share) for g4, _, _, _ in out.values()}
     want = {(True, True), (False, True), (False, False)}
     check(ways >= want, f"the edge shapes miss K4's staging {sorted(want - ways)}")
     return out
@@ -686,6 +702,11 @@ def gba_phases(device, smi: str, schur_log: str) -> dict:
         check(o.isfinite().all().item() and e <= SUM_RTOL,
               f"{name} off its plain version by {e:.3g} > {SUM_RTOL}")
         print(f"phase 8 {name} vs plain: {e:.3g} of max-abs (max |d| {max_abs[name]:.3g})")
+    k6_twice = [schur_cuda.apply_a_raw(*ids, v, H9, TP=TP) for _ in range(2)]
+    torch.cuda.synchronize()
+    k6_bitwise = torch.equal(*k6_twice)
+    print(f"phase 8 apply_a_raw: two calls bitwise equal {k6_bitwise}")
+    del k6_twice
     n_w = int((W18 != 0).any(0).sum())
 
     # phase 9: 10 LM iterations from the perturbed start, kernels then plain
@@ -718,6 +739,7 @@ def gba_phases(device, smi: str, schur_log: str) -> dict:
         "inliers_plain": int(res_p.obs_inlier.sum()),
         "gba_iters_per_s_perturbed_start": GBA_ITERS / t_k,
         "k4_sweeps_perturbed_start": launches["s_apply"],
+        "k6_calls_bitwise_equal_bench_shapes": k6_bitwise,
         "gba_iters_per_s_perturbed_start_plain": GBA_ITERS / t_p,
         "k4_sweeps_perturbed_start_plain": plain_calls["s_apply"],
     }
@@ -809,9 +831,23 @@ def gba_phases(device, smi: str, schur_log: str) -> dict:
     mine = schur_cuda.apply_b_raw(*ids0, u, C, TP=TP)
     check(relmax(lib, mine) <= SUM_RTOL, "the sparse yardstick disagrees with K7")
     records["apply_b_raw"]["library_ms"] = cuda_ms(lambda: Wsp @ u_flat, 20)
-    del Wsp, rows, cols
+    del Wsp
     print(f"phase 10 apply_b_raw library call (CSR sparse product): "
           f"{records['apply_b_raw']['library_ms']:.4f} ms")
+    # library yardstick for K6: the (3L x 6C) CSR product of W^T with v, from
+    # the same entries: the sum alone, without the 3x3 solve
+    WTsp = torch.sparse_coo_tensor(torch.stack([cols.reshape(-1), rows.reshape(-1)]),
+                                   W0.reshape(-1), (3 * Lp, 6 * C),
+                                   check_invariants=False).coalesce().to_sparse_csr()
+    del rows, cols
+    v_flat = v.reshape(-1, 1).contiguous()
+    u_lib = torch.einsum("lij,lj->il", H9.T.reshape(Lp, 3, 3), (WTsp @ v_flat).reshape(Lp, 3))
+    check(relmax(u_lib, schur_cuda.apply_a_raw(*ids0, v, H9, TP=TP)) <= SUM_RTOL,
+          "the sparse yardstick (with the 3x3 solves) disagrees with K6")
+    records["apply_a_raw"]["library_ms"] = cuda_ms(lambda: WTsp @ v_flat, 20)
+    del WTsp
+    print(f"phase 10 apply_a_raw library call (CSR sparse product of W^T with v, the sum "
+          f"alone, without the 3x3 solve): {records['apply_a_raw']['library_ms']:.4f} ms")
     for n in GBA_KERNELS:
         records[n]["launches"] = launches[n]
 
@@ -823,7 +859,9 @@ def gba_phases(device, smi: str, schur_log: str) -> dict:
           f"{schur_cuda.s_apply_active_clusters(geo['s_apply'].cluster, geo['s_apply'].shared_bytes)}"
           f" clusters resident at once; K7 geometry {geo['apply_b']._asdict()}; K3 geometry "
           f"{geo['d1_assemble']._asdict()}; K5 geometry {geo['d2_precond']._asdict()}")
-    gba["edge_shapes"] = {name: errs for name, (_, _, errs) in edge_products(device).items()}
+    edges = edge_products(device)
+    gba["edge_shapes"] = {name: errs for name, (_, _, errs, _) in edges.items()}
+    gba["k6_calls_bitwise_equal"] = {name: eq for name, (_, _, _, eq) in edges.items()}
 
     # torch.profiler splits of a 10-iteration call from each state (after one
     # profile that is thrown away: the profiler's first use starts its tracer)
@@ -837,6 +875,7 @@ def gba_phases(device, smi: str, schur_log: str) -> dict:
     print(json.dumps({"gba": gba}))
     ctx = dict(tp=tp, st=st, Tcw_p=Tcw_p, Xw_p=Xw_p, res_k=res_k, W18=W18,
                aux=aux, H9=H9, v=v, u=u, W0=W0, n_w=n_w, n_active=n_active,
+               k6_library_ms=records["apply_a_raw"]["library_ms"],
                k7_library_ms=records["apply_b_raw"]["library_ms"], work=work)
     return records, ctx
 
@@ -1009,10 +1048,12 @@ def mf_phases(device, smi: str, ctx: dict) -> dict:
                          "library_ms": None}
         print(f"phase 12 {name}: {k_ms:.4f} ms vs plain {p_ms:.4f} ms; bound {b_ms:.4f} ms "
               f"({b_by}), {100 * b_ms / k_ms:.1f}% of it")
-    # yardsticks: K9 against one indexing gather of each table; apply_b is
-    # K7's function on K7's inputs, so it shares K7's CSR product time
+    # yardsticks: K9 against one indexing gather of each table; apply_a and
+    # apply_b are K6's and K7's functions on their inputs, so they share
+    # their CSR product times
     tab, cam_l, lm_l = schur_cuda.pose_table(Tcw), sp.camid.long(), mp.lm_p
     records["expand_sorted_streams"]["library_ms"] = cuda_ms(lambda: (tab[cam_l], Xw[lm_l]), 20)
+    records["apply_a"]["library_ms"] = ctx["k6_library_ms"]
     records["apply_b"]["library_ms"] = ctx["k7_library_ms"]
     print(f"phase 12 expand_sorted_streams library call (two indexing gathers): "
           f"{records['expand_sorted_streams']['library_ms']:.4f} ms")
@@ -1227,11 +1268,17 @@ def main() -> None:
     print(f"phase 3 K1: bitwise equal to its plain version at "
           f"{[tuple(lv.shape) for lv in rendered]}, rendered and random")
 
-    # phase 4: K2 vs its plain version, within tolerance
+    # phase 4: K2 vs its plain version, within tolerance: each frame's 8
+    # levels in one launch, and the one-level wrapper at one odd shape
+    odd = torch.from_numpy(np.random.default_rng(4).uniform(0, 255, K2_ODD_SHAPE)
+                           .astype(np.float32)).to(device)
+    cases = [(name, fast_cuda.blur_and_moments_levels(levels, half_patch=ex.half_patch_size),
+              levels) for name, levels in level_sets.items()]
+    cases.append(("one-level", [fast_cuda.blur_and_moments(odd, half_patch=ex.half_patch_size)],
+                  [odd]))
     k2_err = [0.0, 0.0, 0.0]
-    for name, levels in level_sets.items():
-        for lv in levels:
-            out = fast_cuda.blur_and_moments(lv, half_patch=ex.half_patch_size)
+    for name, outs, levels in cases:
+        for out, lv in zip(outs, levels):
             ref = fast_cuda.blur_and_moments_ref(lv, half_patch=ex.half_patch_size)
             torch.cuda.synchronize()
             for c, (o, r, atol) in enumerate(zip(out, ref, K2_ATOL)):
@@ -1240,7 +1287,8 @@ def main() -> None:
                 check(e <= atol, f"K2 map {c} off by {e:.3g} > {atol} on the {name} "
                       f"level {tuple(lv.shape)}")
     print(f"phase 4 K2: max |err| blur {k2_err[0]:.3g}, m10 {k2_err[1]:.3g}, "
-          f"m01 {k2_err[2]:.3g} (atol {K2_ATOL})")
+          f"m01 {k2_err[2]:.3g} (atol {K2_ATOL}) on every level, one launch a frame, and "
+          f"the one-level wrapper at {K2_ODD_SHAPE}")
 
     # phase 5: track N_FRAMES frames through the port's Tracker
     fr0 = frame_mod.make_frame(cfg, 0, 0.0, frames[0], device)
@@ -1252,6 +1300,7 @@ def main() -> None:
           f"{cfg.capacity.client_max_mps} slots")
     torch.cuda.synchronize()
     fast_cuda.masked_corner_score.launches = 0
+    fast_cuda.blur_and_moments_levels.launches = 0
     fast_cuda.blur_and_moments.launches = 0
     errs = []
     for k in range(1, N_FRAMES + 1):
@@ -1263,11 +1312,14 @@ def main() -> None:
         check(tracker.state == TrackState.OK, f"frame {k}: tracking lost")
         check(fr.n_tracked >= MIN_INLIERS, f"frame {k}: {fr.n_tracked} inliers")
     launches = {"masked_corner_score": fast_cuda.masked_corner_score.launches,
-                "blur_and_moments": fast_cuda.blur_and_moments.launches}
+                "blur_and_moments": fast_cuda.blur_and_moments_levels.launches}
     check(errs[-1] < MAX_FINAL_ERR_M, f"final centre error {errs[-1]:.4f} m")
+    # K1 once a level, K2 once a frame over all levels
+    want = {"masked_corner_score": N_FRAMES * ex.n_levels, "blur_and_moments": N_FRAMES}
     for name, n in launches.items():
-        check(n == N_FRAMES * ex.n_levels, f"{name} launched {n} times, expected "
-              f"{N_FRAMES * ex.n_levels}")
+        check(n == want[name], f"{name} launched {n} times, expected {want[name]}")
+    check(fast_cuda.blur_and_moments.launches == 0,
+          "the tracking step used the one-level K2 wrapper")
     print(f"phase 5 tracking: {N_FRAMES} frames OK, final centre error "
           f"{errs[-1]:.4f} m, launches {launches}")
 
@@ -1293,25 +1345,23 @@ def main() -> None:
 
     lv1 = [lv.contiguous() for lv in image_ops.build_pyramid(img1, ex.n_levels,
                                                             ex.scale_factor)]
-    timed = {   # name -> (kernel, plain version) on one level image
+    timed = {   # name -> (kernel, plain version) on a frame's levels
         "masked_corner_score": (
-            lambda lv: fast_cuda.masked_corner_score(lv, **k1_kw),
-            lambda lv: fast_cuda.masked_corner_score_ref(lv, **k1_kw)),
-        "blur_and_moments": (fast_cuda.blur_and_moments, fast_cuda.blur_and_moments_ref),
+            lambda lvs: [fast_cuda.masked_corner_score(lv, **k1_kw) for lv in lvs],
+            lambda lvs: [fast_cuda.masked_corner_score_ref(lv, **k1_kw) for lv in lvs]),
+        "blur_and_moments": (fast_cuda.blur_and_moments_levels,
+                             fast_cuda.blur_and_moments_levels_ref),
     }
+    one_level = {"masked_corner_score": lambda lv: fast_cuda.masked_corner_score(lv, **k1_kw),
+                 "blur_and_moments": fast_cuda.blur_and_moments}
+    per_frame = {"masked_corner_score": "8 launches", "blur_and_moments": "one launch"}
     kernel_ms = {}
     for name, (kern, plain) in timed.items():
-        def kern_frame():
-            return [kern(lv) for lv in lv1]
-
-        def plain_frame():
-            return [plain(lv) for lv in lv1]
-
-        kernel_ms[name] = turns_ms(kern_frame, plain_frame, 50, 5)
-        lv0_ms = cuda_ms(lambda: kern(lv1[0]), 100)
-        print(f"phase 6 {name}: {kernel_ms[name][0]:.4f} ms per frame (8 levels) vs "
-              f"plain {kernel_ms[name][1]:.4f} ms; level 0 {tuple(lv1[0].shape)} alone "
-              f"{lv0_ms:.4f} ms")
+        kernel_ms[name] = turns_ms(lambda: kern(lv1), lambda: plain(lv1), 50, 5)
+        level_ms = [cuda_ms(lambda: one_level[name](lv), 100) for lv in lv1]
+        print(f"phase 6 {name}: {kernel_ms[name][0]:.4f} ms per frame ({per_frame[name]}) vs "
+              f"plain {kernel_ms[name][1]:.4f} ms; each level alone " + ", ".join(
+                  f"{tuple(lv.shape)} {ms:.4f}" for lv, ms in zip(lv1, level_ms)) + " ms")
     print(f"phase 6 step: median {step_med['kernel']:.3f} ms with the kernels, "
           f"{step_med['plain']:.3f} ms with the plain versions "
           f"({len(step_ms['kernel'])} steps each, on {smi})")

@@ -15,24 +15,26 @@
 // Layout. Observations lie in landmark-aligned tiles: tile t holds the
 // (padded) slots of landmarks [128t, 128t+128), TP slots a tile, OP = ntl*TP
 // slots in all. Every slot has a camera id and a tile-local landmark id.
-// K6, K8: one block runs one tile; its threads stride over the tile's
-// slots. K3, K4, K5 and K7 run persistent grids, described at each kernel.
+// K6, K8: one block runs one tile; K6's warps and K8's threads stride over
+// the tile's slots. K3, K4, K5 and K7 run persistent grids, described at
+// each kernel.
 //
 // - Camera-side inputs (the (C,12) pose table, the (C,6) vector v) are read
 //   in f32 through the read-only cache. The Pallas kernels expanded them with
 //   one-hot MXU products of bf16 splits; here the gather is native and exact.
 // - Landmark-side sums (Hll+bl, W^T v) go into shared memory: a tile lies
 //   whole in one block (in K4, one cluster), so these need no global atomics
-//   and no second pass.
+//   and no second pass. K3, K4 and K6 first sum each warp's run of slots of
+//   one landmark (warp_run_sums), so that one lane a run takes the atomics.
 // - Camera-side sums of K3 (Hcc+bc), K4 and K7 (the Schur products) and K5
 //   (the preconditioner) go into a camera table in each block's shared
 //   memory, flushed once a block and summed in block order by a finishing
 //   pass (see "The camera reduction"): no global atomic per slot. Each of
-//   these outputs, and K3's landmark sums, is the same from run to run up to
-//   the order of one block's shared-memory atomics, which sum in no fixed
-//   order, so they differ in the last bits of f32; the tests hold them to a
-//   relative tolerance. Per-slot outputs (K3's W and aux, K9's streams)
-//   take no atomics and are the same bits on every run.
+//   these outputs, and K3's and K6's landmark sums, is the same from run to
+//   run up to the order of one block's shared-memory atomics, which sum in
+//   no fixed order, so they differ in the last bits of f32; the tests hold
+//   them to a relative tolerance. Per-slot outputs (K3's W and aux, K9's
+//   streams) take no atomics and are the same bits on every run.
 // - A slot whose weight is zero (a pad slot, an invalid observation, a point
 //   behind the camera, or a fixed entity in the W stream) adds exact zeros,
 //   so it is skipped before any atomic: pad slots all name camera 0, and
@@ -78,49 +80,6 @@ __device__ __forceinline__ bool load_w(const float* __restrict__ W18, size_t OP,
     any |= w[r] != 0.0f;
   }
   return any;
-}
-
-// Landmark stage (the A half): u_part[j][l] += sum_i W[i][j] v[cam][i] over
-// the tile's slots, into shared memory. The caller zeroes u_part.
-__device__ __forceinline__ void a_stage(const int* __restrict__ camid,
-                                        const int* __restrict__ lmloc,
-                                        const float* __restrict__ W18,
-                                        const float* __restrict__ v, size_t OP,
-                                        int TP, float* u_part) {
-  const size_t base = static_cast<size_t>(blockIdx.x) * TP;
-  for (int k = threadIdx.x; k < TP; k += blockDim.x) {
-    const size_t s = base + k;
-    float w[18];
-    if (!load_w(W18, OP, s, w)) continue;
-    const int cam = camid[s], l = lmloc[s];
-    float vc[6];
-#pragma unroll
-    for (int i = 0; i < 6; ++i) vc[i] = __ldg(v + cam * 6 + i);
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      float acc = w[j * 6] * vc[0];
-#pragma unroll
-      for (int i = 1; i < 6; ++i) acc = acc + w[j * 6 + i] * vc[i];
-      atomicAdd(&u_part[j * kLm + l], acc);
-    }
-  }
-}
-
-// Per-landmark 3x3 solve: u[i][l] = sum_j Hinv[l][i][j] u_part[j][l], with
-// H9 (9, L_pad) holding row i*3+j. Writes u[i*stride + l].
-__device__ __forceinline__ void solve_stage(const float* __restrict__ H9,
-                                            size_t L_pad, const float* u_part,
-                                            float* u, size_t stride) {
-  for (int l = threadIdx.x; l < kLm; l += blockDim.x) {
-    const size_t g = static_cast<size_t>(blockIdx.x) * kLm + l;
-    const float p0 = u_part[l], p1 = u_part[kLm + l], p2 = u_part[2 * kLm + l];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      u[i * stride + l] = H9[(i * 3) * L_pad + g] * p0
-                          + H9[(i * 3 + 1) * L_pad + g] * p1
-                          + H9[(i * 3 + 2) * L_pad + g] * p2;
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -875,7 +834,21 @@ d2_precond_kernel(const int* __restrict__ camid, const int* __restrict__ lmloc,
 // ---------------------------------------------------------------------------
 // K6: u = Hinv @ sum_obs W^T v[cam], per landmark.
 // ---------------------------------------------------------------------------
-
+//
+// One block runs one tile; its warps walk the tile's slots 32 at a time (TP
+// is a multiple of 128). Each lane forms its slot's W^T v[cam] (zeros for a
+// zero W row: warp_run_sums needs every lane), the warp sums each run of
+// one landmark (warp_run_sums; the slots are landmark-sorted, ~33 a
+// landmark at bench_gba's shapes), and the run's first lane takes the three
+// shared atomics, where 32 lanes once took them on one or two addresses
+// (compare-and-swap loops on this card). After a barrier, each landmark's
+// 3x3 solve. Bounded by bytes: each slot's 72-byte W row and 8 bytes of ids
+// once. On NVIDIA H100 80GB HBM3 cards at 700.00 W (chip_smoke.py phase 10
+// and tools/torch_schur_probe.py --only k6; each run's numbers in PERF.md):
+// 0.076-0.078 ms against a byte bound of 0.0526 ms, from 0.134-0.137 ms
+// with an atomic a slot. Adding the runs instead into per-warp tables
+// summed in warp order, which makes two calls bitwise equal, took
+// 0.082-0.084 ms.
 __global__ void __launch_bounds__(kThreads)
 apply_a_kernel(const int* __restrict__ camid, const int* __restrict__ lmloc,
                const float* __restrict__ W18, const float* __restrict__ v,
@@ -884,9 +857,40 @@ apply_a_kernel(const int* __restrict__ camid, const int* __restrict__ lmloc,
   __shared__ float u_part[3 * kLm];
   for (int i = threadIdx.x; i < 3 * kLm; i += blockDim.x) u_part[i] = 0.0f;
   __syncthreads();
-  a_stage(camid, lmloc, W18, v, OP, TP, u_part);
+  const size_t base = static_cast<size_t>(blockIdx.x) * TP;
+  for (int k = threadIdx.x; k < TP; k += blockDim.x) {    // whole warps
+    const size_t s = base + k;
+    float w[18];
+    float a[3] = {0.0f, 0.0f, 0.0f};
+    if (load_w(W18, OP, s, w)) {
+      const int cam = camid[s];
+      float vc[6];
+#pragma unroll
+      for (int i = 0; i < 6; ++i) vc[i] = __ldg(v + cam * 6 + i);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        a[j] = w[j * 6] * vc[0];
+#pragma unroll
+        for (int i = 1; i < 6; ++i) a[j] = a[j] + w[j * 6 + i] * vc[i];
+      }
+    }
+    const int l = lmloc[s];
+    if (warp_run_sums(l, a) && (a[0] != 0.0f || a[1] != 0.0f || a[2] != 0.0f)) {
+      atomicAdd(&u_part[l], a[0]);
+      atomicAdd(&u_part[kLm + l], a[1]);
+      atomicAdd(&u_part[2 * kLm + l], a[2]);
+    }
+  }
   __syncthreads();
-  solve_stage(H9, L_pad, u_part, u + static_cast<size_t>(blockIdx.x) * kLm, L_pad);
+  for (int l = threadIdx.x; l < kLm; l += blockDim.x) {
+    const float p0 = u_part[l], p1 = u_part[kLm + l], p2 = u_part[2 * kLm + l];
+    const size_t g = static_cast<size_t>(blockIdx.x) * kLm + l;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      u[i * L_pad + g] = H9[(i * 3) * L_pad + g] * p0 + H9[(i * 3 + 1) * L_pad + g] * p1
+                         + H9[(i * 3 + 2) * L_pad + g] * p2;
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------

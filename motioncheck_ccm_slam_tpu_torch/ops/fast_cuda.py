@@ -7,11 +7,12 @@ live in ``csrc/fast.cu`` (plain C interface), are built with ``nvcc`` for
 
 - ``masked_corner_score`` (K1): two-threshold FAST-9/16 with the per-cell
   retry, bit-identical to ``masked_corner_score_ref``.
-- ``blur_and_moments`` (K2): 7-tap Gaussian blur plus the IC moment maps
-  m10/m01 from one image read, within f32 rounding (FMA contraction) of
-  ``blur_and_moments_ref``.
+- ``blur_and_moments_levels`` (K2): 7-tap Gaussian blur plus the IC moment
+  maps m10/m01 of every pyramid level, one image read each, in one launch,
+  within f32 rounding (FMA contraction) of ``blur_and_moments_ref`` on each
+  level; ``blur_and_moments`` is its one-level case.
 
-Each wrapper takes a 2-D contiguous float32 tensor. A CPU tensor goes to the
+Each wrapper takes 2-D contiguous float32 tensors. A CPU tensor goes to the
 plain version; a CUDA tensor launches the kernel or raises. ``launches``
 on each wrapper counts kernel launches (never plain-version calls).
 """
@@ -20,7 +21,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -80,7 +81,8 @@ def _library() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     return cuda_build.load(SOURCE, {
         "mcs_masked_corner_score": [p, i, i, p, i, i, f, f, i, p],
-        "mcs_blur_and_moments": [p, i, i, p, i, p, p, p, i, i, p],
+        "mcs_k2_set_taps": [p, i, i],
+        "mcs_blur_and_moments": [i, p, p, p, p],
     })
 
 
@@ -181,19 +183,35 @@ masked_corner_score.launches = 0
 # K2: blur + IC moment maps
 # ---------------------------------------------------------------------------
 
+# K2's kernel is compiled for half_patch 15 (31 taps), whose moment factors
+# have rank 9 (orb._ic_moment_factors at rel_err 0.01); at most 16 levels
+K2_HALF_PATCH, K2_RANK, K2_MAX_LEVELS = 15, 9, 16
+
+
 @functools.lru_cache(maxsize=None)
-def _device_taps(device: torch.device, half_patch: int) -> Tuple[torch.Tensor, int]:
-    """K2's taps [kb (7), kh (2r, 31), kv (2r, 31)] on ``device`` and the
-    rank r, ordered as the jnp path and the Pallas kernel order them:
-    channels [0, r) build m10, [r, 2r) m01."""
+def k2_taps() -> Tuple[np.ndarray, int]:
+    """K2's taps [kb (7), kh (2r, 31), kv (2r, 31)] at half_patch 15 as one
+    f32 array, and the rank r, ordered as the jnp path and the Pallas kernel
+    order them: channels [0, r) build m10, [r, 2r) m01."""
     from .image import _gaussian_kernel_1d
     from .orb import _ic_moment_factors
 
-    uy, vx = _ic_moment_factors(half_patch)
+    uy, vx = _ic_moment_factors(K2_HALF_PATCH)
     kh = np.concatenate([vx, uy.T], 0)
     kv = np.concatenate([uy.T, vx], 0)
     flat = np.concatenate([_gaussian_kernel_1d(7, 2.0), kh.reshape(-1), kv.reshape(-1)])
-    return torch.from_numpy(flat.astype(np.float32)).to(device), vx.shape[0]
+    return np.ascontiguousarray(flat, np.float32), vx.shape[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _set_taps(device_index: int) -> None:
+    """K2's taps into the constant memory of one device, once."""
+    taps, rank = k2_taps()
+    if rank != K2_RANK:
+        raise ValueError(f"the moment factors have rank {rank}; K2 is compiled for {K2_RANK}")
+    with torch.cuda.device(device_index):
+        err = _library().mcs_k2_set_taps(taps.ctypes.data, taps.size, rank)
+    cuda_build.check_launch(err, "k2_set_taps")
 
 
 def blur_and_moments_ref(img: torch.Tensor, *, half_patch: int = 15,
@@ -211,33 +229,73 @@ def blur_and_moments_ref(img: torch.Tensor, *, half_patch: int = 15,
     return gaussian_blur(x, ksize, sigma), m10, m01
 
 
-def blur_and_moments(img: torch.Tensor, *, half_patch: int = 15):
-    """(H, W) f32 -> (blur, m10, m01), each (Hp, Wc), from one image read.
+def blur_and_moments_levels_ref(levels: Sequence[torch.Tensor], *, half_patch: int = 15):
+    """Plain torch version of ``blur_and_moments_levels``: the plain K2 on
+    each level."""
+    return [blur_and_moments_ref(lv, half_patch=half_patch) for lv in levels]
 
-    The 7-tap sigma=2 blur and the radius-``half_patch`` IC moments. The
-    pad region holds the edge-extended image's maps, which keypoints (>=
-    edge_threshold inside the image) never sample.
+
+def _k2(levels: Sequence[torch.Tensor], half_patch: int) -> List[Tuple[torch.Tensor, ...]]:
+    """Launches K2 once over checked CUDA levels: per level (blur, m10,
+    m01), each (Hp, Wc), contiguous views of one buffer."""
+    if half_patch != K2_HALF_PATCH:
+        raise ValueError("the kernel is compiled for half_patch=15 (31 taps)")
+    dev = levels[0].device
+    lib = _library()
+    _set_taps(dev.index)
+    shapes = [padded_shape(*lv.shape) for lv in levels]
+    sizes = [3 * hp * wc for hp, wc in shapes]
+    n = len(levels)
+    dims = [d for lv, hp_wc in zip(levels, shapes) for d in (*lv.shape, *hp_wc)]
+    with torch.cuda.device(dev):
+        buf = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+        maps = [m.view(3, hp, wc).unbind(0)
+                for m, (hp, wc) in zip(buf.split(sizes), shapes)]
+        imgs = (ctypes.c_void_p * n)(*(lv.data_ptr() for lv in levels))
+        outs = (ctypes.c_void_p * n)(*(m[0].data_ptr() for m in maps))
+        c_dims = (ctypes.c_int * (4 * n))(*dims)
+        err = lib.mcs_blur_and_moments(n, ctypes.addressof(imgs), ctypes.addressof(outs),
+                                       ctypes.addressof(c_dims),
+                                       torch.cuda.current_stream().cuda_stream)
+    cuda_build.check_launch(err, "blur_and_moments")
+    return maps
+
+
+def blur_and_moments_levels(levels: Sequence[torch.Tensor], *, half_patch: int = 15):
+    """K2 on every level of a pyramid in one launch: a list (H_l, W_l) f32
+    -> a list of (blur, m10, m01), each (Hp_l, Wc_l), the 7-tap sigma=2
+    blur and the radius-``half_patch`` IC moments of each level.
+
+    The levels lie on one device; on the card the maps are views of one
+    buffer. The pad region holds the edge-extended image's maps, which
+    keypoints (>= edge_threshold inside the image) never sample.
     """
+    levels = list(levels)
+    if not 1 <= len(levels) <= K2_MAX_LEVELS:
+        raise ValueError(f"expected 1 to {K2_MAX_LEVELS} levels, got {len(levels)}")
+    for lv in levels:
+        _check_image(lv)
+        if lv.device != levels[0].device:
+            raise ValueError(f"levels on {lv.device} and {levels[0].device}")
+    if levels[0].device.type == "cpu":
+        return blur_and_moments_levels_ref(levels, half_patch=half_patch)
+    maps = _k2(levels, half_patch)
+    blur_and_moments_levels.launches += 1
+    return maps
+
+
+blur_and_moments_levels.launches = 0
+
+
+def blur_and_moments(img: torch.Tensor, *, half_patch: int = 15):
+    """(H, W) f32 -> (blur, m10, m01), each (Hp, Wc), from one image read:
+    the one-level case of ``blur_and_moments_levels``."""
     _check_image(img)
     if img.device.type == "cpu":
         return blur_and_moments_ref(img, half_patch=half_patch)
-    if half_patch != 15:
-        raise ValueError("the kernel is compiled for half_patch=15 (31 taps)")
-    h, w = img.shape
-    hp, wc = padded_shape(h, w)
-    lib = _library()
-    taps, rank = _device_taps(img.device, half_patch)
-    with torch.cuda.device(img.device):
-        blur = torch.empty((hp, wc), dtype=torch.float32, device=img.device)
-        m10 = torch.empty_like(blur)
-        m01 = torch.empty_like(blur)
-        err = lib.mcs_blur_and_moments(
-            img.data_ptr(), h, w, taps.data_ptr(), rank, blur.data_ptr(),
-            m10.data_ptr(), m01.data_ptr(), hp, wc,
-            torch.cuda.current_stream().cuda_stream)
-    cuda_build.check_launch(err, "blur_and_moments")
+    maps = _k2([img], half_patch)[0]
     blur_and_moments.launches += 1
-    return blur, m10, m01
+    return maps
 
 
 blur_and_moments.launches = 0

@@ -9,8 +9,9 @@ front-end. Per level:
 - 3x3 NMS, then per-cell and global top-k. Top-k is a stable descending
   sort, which puts the lower index first among equal scores as
   ``jax.lax.top_k`` does (``torch.topk`` does not);
-- K2 gives the blur and the IC moment maps; the angle is two map lookups,
-  steered BRIEF-256 a batched gather on the blur.
+- K2 gives the blur and the IC moment maps of all levels in one launch,
+  before the level loop; the angle is two map lookups, steered BRIEF-256 a
+  batched gather on the blur.
 
 Descriptors are 256 bits packed into (K, 8) int32 words: the bits of the
 JAX package's uint32 words, viewed as int32 (``convert.py`` reinterprets them
@@ -244,14 +245,13 @@ def extract_orb(img: torch.Tensor, params: ExtractorParams) -> OrbFeatures:
     budgets = level_feature_budgets(
         params.max_features, params.n_levels, params.scale_factor
     )
+    levels = [lvl_img.contiguous() for lvl_img in levels]
+    # K2 for all levels in one launch; the padded tail of the maps is never
+    # sampled: keypoints lie >= edge_threshold inside the level
+    maps = fast_cuda.blur_and_moments_levels(levels, half_patch=params.half_patch_size)
     out_xy, out_resp, out_ang, out_oct, out_desc, out_valid = [], [], [], [], [], []
-    for l, (lvl_img, k_level) in enumerate(zip(levels, budgets)):
-        lvl_img = lvl_img.contiguous()
+    for l, (lvl_img, k_level, (blur, m10, m01)) in enumerate(zip(levels, budgets, maps)):
         xy, score, valid = _select_level_keypoints(lvl_img, params, k_level)
-        # the padded tail of the maps is never sampled: keypoints lie
-        # >= edge_threshold inside the level
-        blur, m10, m01 = fast_cuda.blur_and_moments(
-            lvl_img, half_patch=params.half_patch_size)
         ang = ic_angles(lvl_img, xy, (m10, m01))
         out_xy.append(xy * params.scale_factor ** l)
         out_resp.append(score)

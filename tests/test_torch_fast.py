@@ -5,7 +5,9 @@ interpret mode on the CPU, on identical level images.
 K1 is held bitwise (same f32 adds in the same ring order, pad region zero).
 K2 is held to the bounds the JAX package holds its own kernel to
 (tests/test_fast_pallas.py): blur atol 1e-3, moments atol 1.0 (f32
-reassociation over 18 channels x 31 taps of values up to ~1e5).
+reassociation over 18 channels x 31 taps of values up to ~1e5). K2's
+all-levels wrapper, blur_and_moments_levels, runs the plain version on each
+level of a CPU pyramid.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -14,7 +16,7 @@ import torch
 
 from motioncheck_ccm_slam_tpu.config import DEFAULT_CONFIG
 from motioncheck_ccm_slam_tpu.ops import fast_pallas
-from motioncheck_ccm_slam_tpu_torch.ops import fast_cuda
+from motioncheck_ccm_slam_tpu_torch.ops import fast_cuda, image as image_ops
 
 
 def _fixture_137x201():
@@ -67,4 +69,24 @@ def test_blur_and_moments_plain_close(name):
     out = fast_cuda.blur_and_moments_ref(torch.from_numpy(img), half_patch=15)
     for o, r, atol in zip(out, ref, (1e-3, 1.0, 1.0)):
         assert tuple(o.shape) == fast_cuda.padded_shape(h, w)
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=0, atol=atol)
+
+
+def test_blur_and_moments_levels_plain_per_level_and_pallas():
+    """blur_and_moments_levels on a 3-level pyramid: each level's maps equal
+    blur_and_moments_ref on that level, and level 1's are within the
+    tolerance of the Pallas kernel in interpret mode (level 1 is 96x130,
+    a shape the Pallas test above has compiled already)."""
+    img = torch.from_numpy(_blobs(115, 156, 3))
+    levels = [lv.contiguous() for lv in image_ops.build_pyramid(img, 3, 1.2)]
+    assert tuple(levels[1].shape) == (96, 130)
+    out = fast_cuda.blur_and_moments_levels(levels, half_patch=15)
+    assert len(out) == 3
+    for maps, lv in zip(out, levels):
+        for o, r in zip(maps, fast_cuda.blur_and_moments_ref(lv, half_patch=15)):
+            assert tuple(o.shape) == fast_cuda.padded_shape(*lv.shape)
+            assert torch.equal(o, r)
+    ref = fast_pallas.blur_and_moments(jnp.asarray(levels[1].numpy()), half_patch=15,
+                                       interpret=True)
+    for o, r, atol in zip(out[1], ref, (1e-3, 1.0, 1.0)):
         np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=0, atol=atol)

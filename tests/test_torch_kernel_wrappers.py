@@ -7,7 +7,7 @@ argument raises. The tests marked ``cuda`` need an NVIDIA GPU and skip
 elsewhere; on the card (``python -m pytest --noconftest -m cuda
 tests/test_torch_kernel_wrappers.py``) they hold each kernel against its
 plain version: K1 bitwise, K2 within blur 1e-3 / moments 1.0 (FMA
-contraction); K3-K7 relative to each output's max-abs within 1e-4 (sums
+contraction), one level at a time and five levels in one launch; K3-K7 relative to each output's max-abs within 1e-4 (sums
 of ~30 terms taken by atomics in no fixed order, FMA contraction), and
 within 1e-3 for what is computed from residuals (rho, chi2, bl, bc: a
 residual is ~1e3 times smaller than the projection it is taken from, so
@@ -15,7 +15,8 @@ one ulp there is ~1e-4 of it); K8 within 1e-5 relative (the same per-slot
 cost summed in another order); K9 bitwise (it moves data); the plan-form
 products within 1e-4 of each output's max-abs, as K6/K7. K3, K4, K5, K7
 and the plan-form apply_b and schur_apply are also held, at 1e-4, at the
-edge shapes of ``chip_smoke.EDGE_CASES`` (C = 5 to 12,000, TP = 128 to
+edge shapes of ``chip_smoke.EDGE_CASES`` (K6 and the plan-form apply_a at
+its two smallest, C = 5 and C = 130 with a tile of pad slots) (C = 5 to 12,000, TP = 128 to
 25,600, a tile of pad slots only), and two calls on one input to each
 other; there K3 runs on a seeded state whose residuals are pixels, not
 the bench state's fractions of one, so its residual-derived outputs too
@@ -76,6 +77,37 @@ def test_wrapper_rejects_malformed_input(kernel, bad):
         fn(arg, **kw)
 
 
+def _levels(shapes, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.uniform(0, 255, s).astype(np.float32)) for s in shapes]
+
+
+def test_levels_wrapper_routes_cpu_levels_to_plain_versions():
+    levels = _levels([(70, 90), (40, 50), (33, 21)])
+    n1, n2 = fast_cuda.blur_and_moments_levels.launches, fast_cuda.blur_and_moments.launches
+    out = fast_cuda.blur_and_moments_levels(levels)
+    assert len(out) == len(levels)
+    for maps, lv in zip(out, levels):
+        for a, b in zip(maps, fast_cuda.blur_and_moments_ref(lv)):
+            assert torch.equal(a, b)
+    assert fast_cuda.blur_and_moments_levels.launches == n1
+    assert fast_cuda.blur_and_moments.launches == n2
+
+
+@pytest.mark.parametrize("bad", ["no_levels", "17_levels", "float64", "strided", "numpy"])
+def test_levels_wrapper_rejects_malformed_levels(bad):
+    levels = _levels([(70, 90), (40, 50)])
+    arg = {
+        "no_levels": [],
+        "17_levels": levels[:1] * 17,
+        "float64": [levels[0], levels[1].double()],
+        "strided": [levels[0], levels[1][:, ::2]],
+        "numpy": [levels[0], levels[1].numpy()],
+    }[bad]
+    with pytest.raises((TypeError, ValueError)):
+        fast_cuda.blur_and_moments_levels(arg)
+
+
 def test_corner_score_rejects_border_inside_halo():
     with pytest.raises(ValueError, match="HALO"):
         fast_cuda.masked_corner_score(_img(), th_hi=20.0, th_lo=7.0, border=3)
@@ -108,6 +140,27 @@ def test_kernels_match_plain_versions_on_card(cuda_device, shape):
     assert torch.equal(out, fast_cuda.masked_corner_score_ref(img, **K1_ARGS))
     for m, r, atol in zip(maps, fast_cuda.blur_and_moments_ref(img), (1e-3, 1.0, 1.0)):
         torch.testing.assert_close(m, r, rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+def test_k2_levels_match_plain_versions_on_card(cuda_device):
+    """K2 over five levels in one launch, each within the tolerance of its
+    plain version: odd widths and heights, padded heights of 64 to 512
+    (the wrapper pads to a multiple of 64, the kernel's tile height; 448
+    and 192 are not multiples of the taller tiles that
+    tools/torch_fast_probe.py tries), the outputs views of one buffer."""
+    levels = [lv.to(cuda_device) for lv in
+              _levels([(480, 752), (400, 627), (161, 252), (70, 90), (33, 21)], seed=1)]
+    n = fast_cuda.blur_and_moments_levels.launches
+    out = fast_cuda.blur_and_moments_levels(levels)
+    torch.cuda.synchronize()
+    assert fast_cuda.blur_and_moments_levels.launches == n + 1
+    storage = {m.untyped_storage().data_ptr() for maps in out for m in maps}
+    assert len(storage) == 1
+    for maps, lv in zip(out, levels):
+        for m, r, atol in zip(maps, fast_cuda.blur_and_moments_ref(lv), (1e-3, 1.0, 1.0)):
+            assert m.is_contiguous() and tuple(m.shape) == fast_cuda.padded_shape(*lv.shape)
+            torch.testing.assert_close(m, r, rtol=0, atol=atol)
 
 
 # ---------------------------------------------------------------------------
@@ -389,3 +442,26 @@ def test_k3_k5_match_plain_versions_at_edge_shapes_on_card(cuda_device, name):
     if name == "c12000_tp4224":
         assert all(schur_cuda.launch_geometry(k, C, plan.TP, plan.ntl, cuda_device).ranges > 1
                    for k in ("d1_assemble", "d2_precond"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["c5_tp128", "c130_tp128_pad_tile"])
+def test_k6_matches_plain_version_at_small_edge_shapes_on_card(cuda_device, name):
+    """K6, raw and plan-form, at C = 5 and C = 130 (a tile of pad slots
+    only, whose landmarks get u = 0): two calls each within 1e-4 of the
+    plain version and of each other."""
+    C, plan, W, H9, v, u = _edge(name, cuda_device)
+    calls = {"apply_a_raw": ((plan.camid, plan.lmloc, W, v, H9), {"TP": plan.TP}),
+             "apply_a": ((plan, W, v, H9), {})}
+    for fn_name, (args, kw) in calls.items():
+        fn, ref = getattr(schur_cuda, fn_name), getattr(schur_cuda, fn_name + "_ref")
+        n = fn.launches
+        a, b = fn(*args, **kw), fn(*args, **kw)
+        torch.cuda.synchronize()
+        assert fn.launches == n + 2, fn_name
+        want = ref(*args, **kw)
+        assert bool(a.isfinite().all()), fn_name
+        assert _relmax(a, want) < 1e-4 and _relmax(b, want) < 1e-4, fn_name
+        assert _relmax(a, b) < 1e-4, fn_name
+        if name == "c130_tp128_pad_tile":
+            assert not a[:, 128:256].any(), fn_name

@@ -6,7 +6,9 @@ Pallas front-end configuration (kernels in interpret mode on the CPU).
   from a bilinear resize that differs from jax.image.resize by ~3e-5, so
   >= 98% of all valid slots must be identical;
 - on identical keypoints the angle is within 1e-3 rad and a descriptor
-  has <= 4 flipped bits (f32 rounding of the blur can flip a near-tie).
+  has <= 4 flipped bits (f32 rounding of the blur can flip a near-tie);
+- K2 for all levels at once before the level loop gives the same features,
+  bit for bit, as the one-level K2 inside the loop, level by level.
 """
 import dataclasses
 
@@ -19,7 +21,7 @@ import torch
 from motioncheck_ccm_slam_tpu.config import DEFAULT_CONFIG
 from motioncheck_ccm_slam_tpu.ops import fast_pallas, orb as jorb
 from motioncheck_ccm_slam_tpu_torch import convert
-from motioncheck_ccm_slam_tpu_torch.ops import orb as torb
+from motioncheck_ccm_slam_tpu_torch.ops import fast_cuda, image as image_ops, orb as torb
 
 
 def test_static_tables_bitwise():
@@ -87,3 +89,35 @@ def test_extract_orb_all_levels_close(extracted):
     assert da.max() < 1e-3
     flipped = np.unpackbits((out.desc[s] ^ ref.desc[s]).view(np.uint8), axis=-1).sum(-1)
     assert flipped.max() <= 4, f"max hamming drift {flipped.max()}"
+
+
+def _extract_orb_level_by_level(img, params):
+    """extract_orb with the one-level K2 called inside the level loop, on
+    each level after its keypoints, as the loop ran before K2 took all
+    levels in one launch."""
+    levels = image_ops.build_pyramid(img, params.n_levels, params.scale_factor)
+    budgets = torb.level_feature_budgets(params.max_features, params.n_levels,
+                                         params.scale_factor)
+    parts = []
+    for l, (lvl_img, k_level) in enumerate(zip(levels, budgets)):
+        lvl_img = lvl_img.contiguous()
+        xy, score, valid = torb._select_level_keypoints(lvl_img, params, k_level)
+        blur, m10, m01 = fast_cuda.blur_and_moments(lvl_img, half_patch=params.half_patch_size)
+        ang = torb.ic_angles(lvl_img, xy, (m10, m01))
+        parts.append((xy * params.scale_factor ** l, score, ang,
+                      torch.full((k_level,), l, dtype=torch.int64),
+                      torb.brief_descriptors(blur, xy, ang), valid))
+    return torb.OrbFeatures(*(torch.cat(f) for f in zip(*parts)))
+
+
+def test_extract_orb_same_as_level_by_level():
+    rng = np.random.default_rng(42)
+    img = rng.uniform(0, 64, (137, 201)).astype(np.float32)
+    for y, x in rng.integers(25, 110, (30, 2)):
+        img[y:y + 3, x:x + 3] += 150.0
+    params = dataclasses.replace(DEFAULT_CONFIG.extractor, max_features=150)
+    out = torb.extract_orb(torch.from_numpy(img), params)
+    want = _extract_orb_level_by_level(torch.from_numpy(img), params)
+    assert int(want.valid.sum()) > 50
+    for name, a, b in zip(torb.OrbFeatures._fields, out, want):
+        assert torch.equal(a, b), name

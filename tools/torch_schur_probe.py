@@ -25,8 +25,19 @@ csrc/schur.cu of the commit before their redesign (per-slot global
 atomics, no geometry arguments), e.g. from ``git show
 <commit>:motioncheck_ccm_slam_tpu_torch/csrc/schur.cu``.
 
-Usage (on the card): python3 tools/torch_schur_probe.py [--only k3_k5|k4_k7]
-    [--source PATH]
+K6 (--only k6): the kernel as it is and two copies whose A stage sums
+each warp's run of slots of one landmark first (warp_run_sums), as K4's
+does: run_sums_atomics, where the run's first lane takes the three shared
+atomics into one table, and run_sums_ordered, where it adds them into its
+warp's own table (plain adds, one run at a time where a landmark has two
+runs in a warp), the tables then summed in warp order, so that every
+landmark's sum is taken in one fixed order. Each copy replaces the source's
+apply_a_kernel whole, so --source takes either design (in the design with
+warp run sums, run_sums_atomics is the kernel as it is); each is called
+twice on one input and the two results compared bitwise.
+
+Usage (on the card): python3 tools/torch_schur_probe.py
+    [--only k3_k5|k4_k7|k6] [--source PATH]
 """
 import argparse
 import ctypes
@@ -143,6 +154,90 @@ K3K5_VARIANTS = {
                     ("constexpr int kD2Threads = 1024;", "constexpr int kD2Threads = 512;")],
 }
 
+# K6's kernel with its A stage summing each warp's runs of one landmark
+# first; {add} is how the run's first lane adds the run's three sums
+_K6_KERNEL = """__global__ void __launch_bounds__(kThreads)
+apply_a_kernel(const int* __restrict__ camid, const int* __restrict__ lmloc,
+               const float* __restrict__ W18, const float* __restrict__ v,
+               const float* __restrict__ H9, int TP, size_t OP, size_t L_pad,
+               float* __restrict__ u) {{
+  constexpr int kWarps = kThreads / 32;
+  __shared__ float part[{tables}][3 * kLm];
+  for (int i = threadIdx.x; i < {tables} * 3 * kLm; i += blockDim.x) (&part[0][0])[i] = 0.0f;
+  __syncthreads();
+  const unsigned all = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  float* mine = part[{table}];
+  const size_t base = static_cast<size_t>(blockIdx.x) * TP;
+  for (int k = threadIdx.x; k < TP; k += blockDim.x) {{
+    const size_t s = base + k;
+    float w[18];
+    float a[3] = {{0.0f, 0.0f, 0.0f}};
+    if (load_w(W18, OP, s, w)) {{
+      const int cam = camid[s];
+      float vc[6];
+#pragma unroll
+      for (int i = 0; i < 6; ++i) vc[i] = __ldg(v + cam * 6 + i);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {{
+        a[j] = w[j * 6] * vc[0];
+#pragma unroll
+        for (int i = 1; i < 6; ++i) a[j] = a[j] + w[j * 6 + i] * vc[i];
+      }}
+    }}
+    const int l = lmloc[s];
+    const bool head = warp_run_sums(l, a);
+{add}
+  }}
+  __syncthreads();
+  for (int l = threadIdx.x; l < kLm; l += blockDim.x) {{
+    float p0 = 0.0f, p1 = 0.0f, p2 = 0.0f;
+    for (int q = 0; q < {tables}; ++q) {{
+      p0 += part[q][l];
+      p1 += part[q][kLm + l];
+      p2 += part[q][2 * kLm + l];
+    }}
+    const size_t g = static_cast<size_t>(blockIdx.x) * kLm + l;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {{
+      u[i * L_pad + g] = H9[(i * 3) * L_pad + g] * p0 + H9[(i * 3 + 1) * L_pad + g] * p1
+                         + H9[(i * 3 + 2) * L_pad + g] * p2;
+    }}
+  }}
+  (void)lane;
+  (void)all;
+}}
+"""
+_K6_ATOMIC_ADD = """    if (head && (a[0] != 0.0f || a[1] != 0.0f || a[2] != 0.0f)) {
+      atomicAdd(&mine[l], a[0]);
+      atomicAdd(&mine[kLm + l], a[1]);
+      atomicAdd(&mine[2 * kLm + l], a[2]);
+    }"""
+_K6_ORDERED_ADD = """    unsigned pend = __ballot_sync(all, head && (a[0] != 0.0f || a[1] != 0.0f || a[2] != 0.0f));
+    while (pend != 0u) {
+      const unsigned same = __match_any_sync(all, l) & pend;
+      const bool go = ((pend >> lane) & 1u) != 0u && __ffs(same) - 1 == lane;
+      if (go) {
+        mine[l] += a[0];
+        mine[kLm + l] += a[1];
+        mine[2 * kLm + l] += a[2];
+      }
+      __syncwarp();
+      pend &= ~__ballot_sync(all, go);
+    }"""
+K6_VARIANTS = {
+    "as_is": None,
+    "run_sums_atomics": _K6_KERNEL.format(tables="1", table="0", add=_K6_ATOMIC_ADD),
+    "run_sums_ordered": _K6_KERNEL.format(tables="kWarps", table="threadIdx.x >> 5",
+                                          add=_K6_ORDERED_ADD),
+}
+
+
+def k6_kernel_text(src: str) -> str:
+    """The source's apply_a_kernel, from its __global__ line to its end."""
+    start = src.index("__global__ void __launch_bounds__(kThreads)\napply_a_kernel(")
+    return src[start:src.index("\n}\n", start) + 3]
+
 
 def instrumented(src: str, edits, some: bool = False) -> str:
     """src with the clocks in and each edit applied at every place its text
@@ -176,6 +271,7 @@ def legacy_k3_k5(src: str) -> bool:
 def load(path: str, legacy: bool) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     sig = {"mcs_s_apply": [p] * 5 + [i, i, p] + [i] * 8 + [p, p],
+           "mcs_apply_a": [p] * 5 + [i, i, p, p],
            "mcs_apply_b": [p] * 4 + [i, i, p] + [i] * 4 + [p, p],
            "mcs_s_apply_active_clusters": [i, i], "probe_read": [p]}
     if legacy:
@@ -336,9 +432,27 @@ def k3_k5_part(libs: dict, legacy: bool, pb: dict, dev) -> None:
         print(f"{name} K5: {ms5:.4f} ms, relative error {e5:.2g}")
 
 
+def k6_part(libs: dict, pb: dict, dev) -> None:
+    tp, W, H9, v = pb["tp"], pb["W"], pb["H9"], pb["v"]
+    ref = sc.apply_a_raw_ref(tp.camid, tp.lmloc, W, v, H9, TP=tp.TP)
+    for name, lib in libs.items():
+        def k6():
+            u = torch.empty((3, tp.L_pad), device=dev)
+            err = lib.mcs_apply_a(tp.camid.data_ptr(), tp.lmloc.data_ptr(), W.data_ptr(),
+                                  v.data_ptr(), H9.data_ptr(), tp.ntl, tp.TP, u.data_ptr(),
+                                  sc._stream())
+            cuda_build.check_launch(err, "probe apply_a")
+            return u
+        a, b = k6(), k6()
+        torch.cuda.synchronize()
+        print(f"{name} K6: {cs.cuda_ms(k6, 30):.4f} ms, relative error "
+              f"{max(cs.relmax(a, ref), cs.relmax(b, ref)):.2g}; two calls bitwise equal: "
+              f"{torch.equal(a, b)}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("k3_k5", "k4_k7"))
+    ap.add_argument("--only", choices=("k3_k5", "k4_k7", "k6"))
     ap.add_argument("--source", default=sc.SOURCE)
     a = ap.parse_args()
     if not torch.cuda.is_available():
@@ -347,13 +461,16 @@ def main() -> None:
     with open(a.source) as f:
         src = f.read()
     legacy = legacy_k3_k5(src)
-    parts = ("k4_k7", "k3_k5") if a.only is None else (a.only,)
+    parts = ("k4_k7", "k3_k5", "k6") if a.only is None else (a.only,)
     variants = {}
     if "k4_k7" in parts:
         variants.update({f"k4k7_{n}": (e, False) for n, e in VARIANTS.items()})
     if "k3_k5" in parts:    # the variants that apply to this design of K3 and K5
         variants.update({f"k3k5_{n}": (e, bool(e)) for n, e in K3K5_VARIANTS.items()
                          if not e or any(t in src for t, _ in e)})
+    if "k6" in parts:       # each copy's kernel in place of the source's
+        variants.update({f"k6_{n}": ([] if t is None else [(k6_kernel_text(src), t)], False)
+                         for n, t in K6_VARIANTS.items()})
     libs = {name: load(path, legacy) for name, path in build_all(src, variants).items()}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -366,6 +483,8 @@ def main() -> None:
     if "k3_k5" in parts:
         k3_k5_part({n[5:]: lib for n, lib in libs.items() if n.startswith("k3k5_")}, legacy,
                    pb, dev)
+    if "k6" in parts:
+        k6_part({n[3:]: lib for n, lib in libs.items() if n.startswith("k6_")}, pb, dev)
 
 
 if __name__ == "__main__":
