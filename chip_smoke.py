@@ -7,18 +7,19 @@ levels, 1024 feature slots, an 8192-landmark map):
 1. check for a GPU and print its name and power limit;
 2. build the CUDA kernels (csrc/fast.cu and csrc/schur.cu), one nvcc for
    each source, started together;
-3. K1 (masked_corner_score) against its plain version at all 8 pyramid
-   level shapes, on a rendered frame and on a random image: bitwise;
+3. K1 (masked_corner_score_levels, one launch over all 8 levels) against
+   its plain version on every level, on a rendered frame and on a random
+   image: bitwise; and the one-level masked_corner_score at one odd shape;
 4. K2 (blur_and_moments_levels, one launch over all 8 levels) likewise,
    on every level: blur within 1e-3, moments within 1.0; and the one-level
    blur_and_moments at one odd shape;
 5. track 20 rendered frames with the port's Tracker; every frame keeps
    >= 15 inliers, the final camera-centre error is within 0.10 m of the
-   truth, K1 was launched 20 x 8 times and K2 20 times (once a frame);
+   truth, K1 and K2 were launched 20 times each (once a frame);
 6. time the step with the kernels and with their plain versions, and each
    kernel alone against its plain version, its bound and a library call
-   (K2 a frame in one launch, and each level alone through the one-level
-   wrapper).
+   (K1 and K2 a frame in one launch each, and each level alone through
+   the one-level wrappers).
 
 The server's tile-stream GBA at the operating point of bench.py:bench_gba
 (2048 keyframes, 65,536 landmarks, 2,048,000 observations):
@@ -49,7 +50,8 @@ matrix_free_gba_entry; its plan has the tile plan's 2,162,688 slots):
 11. K9 (expand_sorted_streams) against its plain version, bitwise; the
     plan-form apply_a, apply_b and schur_apply within 1e-4 of each output's
     max-abs; K8 (d0_cost) within 1e-5 relative of its plain version and of
-    the sum of K3's per-slot cost on the same state;
+    the sum of K3's per-slot cost on the same state, two calls bitwise
+    equal (K8 sums in a fixed order);
 12. 10 LM iterations from phase 9's perturbed start with the kernels and
     with their plain versions, each priced by K8: both lower the robust
     cost and land within phase 9's bounds of each other and of the tile
@@ -96,7 +98,7 @@ N_FRAMES = 20
 MIN_INLIERS = 15
 MAX_FINAL_ERR_M = 0.10
 K2_ATOL = (1e-3, 1.0, 1.0)   # blur, m10, m01
-K2_ODD_SHAPE = (97, 131)     # the one-level wrapper's shape in phase 4
+K2_ODD_SHAPE = (97, 131)     # the one-level wrappers' shape in phases 3 and 4
 GBA_ITERS = 10
 GBA_BOUNDS = dict(cost_rtol=1e-3, Tcw_atol=1e-3, Xw_atol=5e-3)
 # K3-K7 against their plain versions, relative to each output's max-abs:
@@ -318,13 +320,13 @@ def plain_kernels():
     tensors), for timing the step without the kernels."""
     from motioncheck_ccm_slam_tpu_torch.ops import fast_cuda
 
-    saved = fast_cuda.masked_corner_score, fast_cuda.blur_and_moments_levels
-    fast_cuda.masked_corner_score = fast_cuda.masked_corner_score_ref
+    saved = fast_cuda.masked_corner_score_levels, fast_cuda.blur_and_moments_levels
+    fast_cuda.masked_corner_score_levels = fast_cuda.masked_corner_score_levels_ref
     fast_cuda.blur_and_moments_levels = fast_cuda.blur_and_moments_levels_ref
     try:
         yield
     finally:
-        fast_cuda.masked_corner_score, fast_cuda.blur_and_moments_levels = saved
+        fast_cuda.masked_corner_score_levels, fast_cuda.blur_and_moments_levels = saved
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -932,13 +934,16 @@ def mf_phases(device, smi: str, ctx: dict) -> dict:
         return float(schur_cuda.d0_cost(*d0_args(T, X), TP=TP))
 
     a_p = d0_args(Tcw_p, Xw_p)
-    c8, c8_ref = k8(Tcw_p, Xw_p), float(schur_cuda.d0_cost_ref(*a_p, TP=TP))
+    c8a, c8b = (schur_cuda.d0_cost(*a_p, TP=TP) for _ in range(2))
+    c8, c8_ref = float(c8a), float(schur_cuda.d0_cost_ref(*a_p, TP=TP))
     c3 = float(torch.sum(ctx["aux"][0]))
     max_abs["d0_cost"] = abs(c8 - c8_ref)
+    check(torch.equal(c8a, c8b), f"two K8 calls differ: {c8:.9g} and {float(c8b):.9g}")
     for name, b in (("its plain version", c8_ref), ("the sum of K3's per-slot cost", c3)):
         check(np.isfinite(c8) and abs(c8 - b) <= 1e-5 * abs(b),
               f"K8 cost {c8:.9g} vs {b:.9g} ({name})")
-    print(f"phase 11 K8 d0_cost: {c8:.9g} vs plain {c8_ref:.9g} and K3's sum {c3:.9g}")
+    print(f"phase 11 K8 d0_cost: {c8:.9g} (two calls bitwise equal) vs plain {c8_ref:.9g} "
+          f"and K3's sum {c3:.9g}")
 
     # phase 12: 10 LM iterations from the perturbed start, priced by K8
     fn(Tcw_p, Xw_p, obs, K, fixed_cam, fixed_lm, n_iterations=0)   # builds fn's plan
@@ -1253,11 +1258,19 @@ def main() -> None:
                                     .astype(np.float32)).to(device) for lv in rendered],
     }
 
-    # phase 3: K1 vs its plain version, bitwise
+    # phase 3: K1 vs its plain version, bitwise: each frame's 8 levels in
+    # one launch, and the one-level wrapper at one odd shape
+    odd = torch.from_numpy(np.random.default_rng(4).uniform(0, 255, K2_ODD_SHAPE)
+                           .astype(np.float32)).to(device)
     k1_err = 0.0
-    for name, levels in level_sets.items():
-        for lv in levels:
-            out = fast_cuda.masked_corner_score(lv, **k1_kw)
+    n1 = fast_cuda.masked_corner_score_levels.launches
+    cases = [(name, fast_cuda.masked_corner_score_levels(levels, **k1_kw), levels)
+             for name, levels in level_sets.items()]
+    check(fast_cuda.masked_corner_score_levels.launches == n1 + len(level_sets),
+          "K1 took more than one launch a frame")
+    cases.append(("one-level", [fast_cuda.masked_corner_score(odd, **k1_kw)], [odd]))
+    for name, outs, levels in cases:
+        for out, lv in zip(outs, levels):
             ref = fast_cuda.masked_corner_score_ref(lv, **k1_kw)
             torch.cuda.synchronize()
             k1_err = max(k1_err, float((out - ref).abs().max()))
@@ -1266,12 +1279,11 @@ def main() -> None:
             check(name != "rendered" or int((ref > 0).sum()) > 0,
                   f"no corners on rendered level {tuple(lv.shape)}")
     print(f"phase 3 K1: bitwise equal to its plain version at "
-          f"{[tuple(lv.shape) for lv in rendered]}, rendered and random")
+          f"{[tuple(lv.shape) for lv in rendered]}, rendered and random, one launch a "
+          f"frame, and the one-level wrapper at {K2_ODD_SHAPE}")
 
     # phase 4: K2 vs its plain version, within tolerance: each frame's 8
     # levels in one launch, and the one-level wrapper at one odd shape
-    odd = torch.from_numpy(np.random.default_rng(4).uniform(0, 255, K2_ODD_SHAPE)
-                           .astype(np.float32)).to(device)
     cases = [(name, fast_cuda.blur_and_moments_levels(levels, half_patch=ex.half_patch_size),
               levels) for name, levels in level_sets.items()]
     cases.append(("one-level", [fast_cuda.blur_and_moments(odd, half_patch=ex.half_patch_size)],
@@ -1299,6 +1311,7 @@ def main() -> None:
     print(f"phase 5 map: {n_mps} landmarks from frame 0 in "
           f"{cfg.capacity.client_max_mps} slots")
     torch.cuda.synchronize()
+    fast_cuda.masked_corner_score_levels.launches = 0
     fast_cuda.masked_corner_score.launches = 0
     fast_cuda.blur_and_moments_levels.launches = 0
     fast_cuda.blur_and_moments.launches = 0
@@ -1311,15 +1324,14 @@ def main() -> None:
         print(f"  frame {k:2d}: inliers {fr.n_tracked:4d}  centre error {err:.4f} m")
         check(tracker.state == TrackState.OK, f"frame {k}: tracking lost")
         check(fr.n_tracked >= MIN_INLIERS, f"frame {k}: {fr.n_tracked} inliers")
-    launches = {"masked_corner_score": fast_cuda.masked_corner_score.launches,
+    launches = {"masked_corner_score": fast_cuda.masked_corner_score_levels.launches,
                 "blur_and_moments": fast_cuda.blur_and_moments_levels.launches}
     check(errs[-1] < MAX_FINAL_ERR_M, f"final centre error {errs[-1]:.4f} m")
-    # K1 once a level, K2 once a frame over all levels
-    want = {"masked_corner_score": N_FRAMES * ex.n_levels, "blur_and_moments": N_FRAMES}
+    # K1 and K2 once a frame each, over all levels
     for name, n in launches.items():
-        check(n == want[name], f"{name} launched {n} times, expected {want[name]}")
-    check(fast_cuda.blur_and_moments.launches == 0,
-          "the tracking step used the one-level K2 wrapper")
+        check(n == N_FRAMES, f"{name} launched {n} times, expected {N_FRAMES}")
+    check(fast_cuda.masked_corner_score.launches == 0 and fast_cuda.blur_and_moments.launches == 0,
+          "the tracking step used a one-level K1 or K2 wrapper")
     print(f"phase 5 tracking: {N_FRAMES} frames OK, final centre error "
           f"{errs[-1]:.4f} m, launches {launches}")
 
@@ -1347,19 +1359,18 @@ def main() -> None:
                                                             ex.scale_factor)]
     timed = {   # name -> (kernel, plain version) on a frame's levels
         "masked_corner_score": (
-            lambda lvs: [fast_cuda.masked_corner_score(lv, **k1_kw) for lv in lvs],
-            lambda lvs: [fast_cuda.masked_corner_score_ref(lv, **k1_kw) for lv in lvs]),
+            lambda lvs: fast_cuda.masked_corner_score_levels(lvs, **k1_kw),
+            lambda lvs: fast_cuda.masked_corner_score_levels_ref(lvs, **k1_kw)),
         "blur_and_moments": (fast_cuda.blur_and_moments_levels,
                              fast_cuda.blur_and_moments_levels_ref),
     }
     one_level = {"masked_corner_score": lambda lv: fast_cuda.masked_corner_score(lv, **k1_kw),
                  "blur_and_moments": fast_cuda.blur_and_moments}
-    per_frame = {"masked_corner_score": "8 launches", "blur_and_moments": "one launch"}
     kernel_ms = {}
     for name, (kern, plain) in timed.items():
         kernel_ms[name] = turns_ms(lambda: kern(lv1), lambda: plain(lv1), 50, 5)
         level_ms = [cuda_ms(lambda: one_level[name](lv), 100) for lv in lv1]
-        print(f"phase 6 {name}: {kernel_ms[name][0]:.4f} ms per frame ({per_frame[name]}) vs "
+        print(f"phase 6 {name}: {kernel_ms[name][0]:.4f} ms per frame (one launch) vs "
               f"plain {kernel_ms[name][1]:.4f} ms; each level alone " + ", ".join(
                   f"{tuple(lv.shape)} {ms:.4f}" for lv, ms in zip(lv1, level_ms)) + " ms")
     print(f"phase 6 step: median {step_med['kernel']:.3f} ms with the kernels, "
@@ -1367,14 +1378,23 @@ def main() -> None:
           f"({len(step_ms['kernel'])} steps each, on {smi})")
     check(all(np.isfinite(v) for v in step_med.values()), "non-finite step time")
 
-    # K1/K2 bounds per frame (8 levels): K1 does 16 ring taps x 17 f32 ops
-    # (1 difference, 4 compares, 4 x (subtract, max, add)) a pixel; K2 does
-    # the 7+7-tap blur and 2r separable moment channels of 31+31 FMA taps
+    # K1/K2 bounds per frame (8 levels). K1's work depends on the data: 16
+    # ring taps x 9 f32 ops (the difference, 4 compares and their 4 ORs)
+    # for every output pixel, plus 16 x 3 (subtract, max, add) for each of
+    # the chosen threshold's two sums on each pixel that scores, counted
+    # from the plain version's output on this frame; the count before K1's
+    # redesign (16 x 17 for every pixel: all four sums) is printed beside
+    # it. K2 does the 7+7-tap blur and 2r separable moment channels of
+    # 31+31 FMA taps
     w_k2, rank = k2_library_weight(device)
     px_in = sum(lv.numel() for lv in lv1)
     px_out = sum(int(np.prod(fast_cuda.padded_shape(*lv.shape))) for lv in lv1)
+    n_scoring = sum(int((m > 0).sum()) for m in
+                    fast_cuda.masked_corner_score_levels_ref(lv1, **k1_kw))
+    k1_flat_bound = bound_ms(4 * (px_in + px_out), 16 * 17 * px_out)
     k_bound = {
-        "masked_corner_score": bound_ms(4 * (px_in + px_out), 16 * 17 * px_out),
+        "masked_corner_score": bound_ms(4 * (px_in + px_out),
+                                        16 * 9 * px_out + 2 * 16 * 3 * n_scoring),
         "blur_and_moments": bound_ms(4 * (px_in + 3 * px_out),
                                      (28 + 2 * rank * 62 * 2) * px_out),
     }
@@ -1403,7 +1423,10 @@ def main() -> None:
             "ms": kernel_ms[name][0], "plain_ms": kernel_ms[name][1], "bound_ms": b_ms,
             "bound_by": b_by,
             "library_ms": lib_k2 if name == "blur_and_moments" else None}
-        print(f"phase 6 {name}: bound {b_ms:.4f} ms per frame ({b_by})")
+        extra = (f"; {n_scoring} scoring pixels of {px_out}; by 16 x 17 operations a "
+                 f"pixel (the count before K1's redesign) {k1_flat_bound[0]:.4f} ms "
+                 f"({k1_flat_bound[1]})" if name == "masked_corner_score" else "")
+        print(f"phase 6 {name}: bound {b_ms:.4f} ms per frame ({b_by}){extra}")
 
     gba_records, ctx = gba_phases(device, smi, schur_log)
     records.update(gba_records)

@@ -34,7 +34,8 @@
 //   run up to the order of one block's shared-memory atomics, which sum in
 //   no fixed order, so they differ in the last bits of f32; the tests hold
 //   them to a relative tolerance. Per-slot outputs (K3's W and aux, K9's
-//   streams) take no atomics and are the same bits on every run.
+//   streams) take no atomics and are the same bits on every run, and so is
+//   K8's cost, whose tile partials are summed in tile order.
 // - A slot whose weight is zero (a pad slot, an invalid observation, a point
 //   behind the camera, or a fixed entity in the W stream) adds exact zeros,
 //   so it is skipped before any atomic: pad slots all name camera 0, and
@@ -229,18 +230,10 @@ __device__ __forceinline__ bool warp_run_sums(int key, float (&a)[N]) {
 // The per-slot projection stage, shared by K3 and K8.
 // ---------------------------------------------------------------------------
 
-// Camera row of the (C, 12) pose table: R row-major, then t.
-__device__ __forceinline__ void load_pose(const float* __restrict__ pose, int cam,
-                                          float (&R)[9], float (&t)[3]) {
-#pragma unroll
-  for (int q = 0; q < 9; ++q) R[q] = __ldg(pose + cam * 12 + q);
-#pragma unroll
-  for (int q = 0; q < 3; ++q) t[q] = __ldg(pose + cam * 12 + 9 + q);
-}
-
-// load_pose by three 16-byte loads from a 16-byte aligned table. K3 gives
-// most of an SM's L1 to its camera table, so the twelve 4-byte loads of
-// load_pose would each be a separate request to L2 for a slot's camera.
+// Camera row of the (C, 12) pose table (R row-major, then t) by three
+// 16-byte loads from a 16-byte aligned table. K3 gives most of an SM's L1
+// to its camera table, so twelve 4-byte loads would each be a separate
+// request to L2 for a slot's camera; K8 is faster with them too.
 __device__ __forceinline__ void load_pose_vec(const float* __restrict__ pose, int cam,
                                               float (&R)[9], float (&t)[3]) {
   const float4* p = reinterpret_cast<const float4*>(pose) + cam * 3;
@@ -939,20 +932,49 @@ apply_b_kernel(const int* __restrict__ camid, const int* __restrict__ lmloc,
 // K8: the robust cost of a state, one scalar.
 // ---------------------------------------------------------------------------
 
-// K3's per-slot stage reduced to sum rho: per-thread sums, a warp-shuffle and
-// shared-memory block reduction, and one atomicAdd a block into the zeroed
-// 0-d output. A slot with valid = 0 (a pad or an invalid observation) has
-// rho = 0 exactly and is skipped before any load of its pose.
-__global__ void __launch_bounds__(kThreads)
+// K3's per-slot stage reduced to sum rho, in a fixed order. Bounded by its
+// streams (24 bytes a valid slot, 4 a pad); what holds it above that is
+// the latency of each slot's chain of loads (valid, then the ids, then the
+// pose gather; tools/torch_schur_probe.py --only k8), which twelve 4-byte
+// pose loads a slot made worse: the pose comes by three 16-byte loads and
+// uv by one 8-byte load. One block of kD0Threads runs a tile, staging its
+// 128 points; a slot with valid = 0 (a pad or an invalid observation) has
+// rho = 0 exactly and is skipped before any load of its pose (two blocks a
+// tile, or 256 threads, were no faster). A thread sums its slots in turn,
+// then a fixed warp-shuffle and shared-memory tree gives the tile's
+// partial. A second launch of one block, d0_sum_kernel, adds the partials
+// in tile order by the same tree, so two calls on one state give the same
+// bits; finding the last block by an atomic ticket instead cost K8 ~15%
+// (a fence and an atomic in every block, and registers that spilled). 512
+// threads at <= 32 registers keep all 512 blocks of bench_gba's tiles in
+// one wave.
+constexpr int kD0Threads = 512;     // threads a block
+constexpr int kD0MinBlocks = 2048 / kD0Threads;   // a full SM: <= 32 registers
+
+// The sum of acc over the block by a fixed tree, returned to thread 0.
+__device__ __forceinline__ float d0_block_sum(float acc, float* warp_sum) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
+  if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5] = acc;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    acc = threadIdx.x < kD0Threads / 32 ? warp_sum[threadIdx.x] : 0.0f;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
+  }
+  return acc;
+}
+
+__global__ void __launch_bounds__(kD0Threads, kD0MinBlocks)
 d0_cost_kernel(const int* __restrict__ camid, const int* __restrict__ lmloc,
                const float* __restrict__ uv, const float* __restrict__ is2,
                const float* __restrict__ valid, const float* __restrict__ kp,
                const float* __restrict__ pose, const float* __restrict__ X, int TP,
-               float* __restrict__ out) {
+               float* __restrict__ partial) {
   __shared__ float x_s[3][kLm];
-  __shared__ float warp_sum[kThreads / 32];
+  __shared__ float warp_sum[kD0Threads / 32];
   const size_t lm0 = static_cast<size_t>(blockIdx.x) * kLm;
-  for (int i = threadIdx.x; i < 3 * kLm; i += blockDim.x) {
+  for (int i = threadIdx.x; i < 3 * kLm; i += kD0Threads) {
     const int l = i / 3, c = i % 3;
     x_s[c][l] = X[(lm0 + l) * 3 + c];
   }
@@ -960,26 +982,31 @@ d0_cost_kernel(const int* __restrict__ camid, const int* __restrict__ lmloc,
   const float fx = __ldg(kp), fy = __ldg(kp + 1), cx = __ldg(kp + 2), cy = __ldg(kp + 3);
   const size_t base = static_cast<size_t>(blockIdx.x) * TP;
   float acc = 0.0f;
-  for (int k = threadIdx.x; k < TP; k += blockDim.x) {
+#pragma unroll 1                    // unrolled, the loop takes 40 registers
+  for (int k = threadIdx.x; k < TP; k += kD0Threads) {
     const size_t s = base + k;
     const float vs = valid[s];
     if (vs == 0.0f) continue;
     const int cam = camid[s], l = lmloc[s];
     float R[9], t[3];
-    load_pose(pose, cam, R, t);
-    acc += project_slot(R, t, x_s[0][l], x_s[1][l], x_s[2][l], uv[2 * s], uv[2 * s + 1],
-                        is2[s], vs, fx, fy, cx, cy).rho;
+    load_pose_vec(pose, cam, R, t);
+    const float2 q = __ldg(reinterpret_cast<const float2*>(uv) + s);
+    acc += project_slot(R, t, x_s[0][l], x_s[1][l], x_s[2][l], q.x, q.y, is2[s], vs, fx, fy,
+                        cx, cy).rho;
   }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
-  if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5] = acc;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    acc = threadIdx.x < (blockDim.x >> 5) ? warp_sum[threadIdx.x] : 0.0f;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
-    if (threadIdx.x == 0) atomicAdd(out, acc);
-  }
+  const float sum = d0_block_sum(acc, warp_sum);
+  if (threadIdx.x == 0) partial[blockIdx.x] = sum;
+}
+
+// K8's finishing pass: out = the sum of n partials in a fixed order
+// (thread t adds partials t, t + kD0Threads, ... in turn, then the tree).
+__global__ void __launch_bounds__(kD0Threads)
+d0_sum_kernel(const float* __restrict__ partial, int n, float* __restrict__ out) {
+  __shared__ float warp_sum[kD0Threads / 32];
+  float a = 0.0f;
+  for (int g = threadIdx.x; g < n; g += kD0Threads) a += partial[g];
+  const float cost = d0_block_sum(a, warp_sum);
+  if (threadIdx.x == 0) *out = cost;
 }
 
 // ---------------------------------------------------------------------------
@@ -1033,11 +1060,11 @@ bool table_geometry_ok(int C, int grid_x, int cam_range, int shared_bytes, long 
 extern "C" {
 
 // Common arguments: camid, lmloc (OP,) i32 with OP = ntl * TP; W18 (18, OP)
-// f32 J-major; H9 (9, L_pad) f32 with L_pad = ntl * 128. K8's output, which
-// takes atomics, is zeroed by the caller. Where an entry point takes a launch
-// geometry (schur_cuda.camera_reduction_geometry): grid_x blocks along x,
-// ceil(C / cam_range) camera ranges along y, shared_bytes of dynamic shared
-// memory a block; its partial (grid_x, C, k) is scratch, written whole.
+// f32 J-major; H9 (9, L_pad) f32 with L_pad = ntl * 128. Where an entry
+// point takes a launch geometry (schur_cuda.camera_reduction_geometry):
+// grid_x blocks along x, ceil(C / cam_range) camera ranges along y,
+// shared_bytes of dynamic shared memory a block; its partial (grid_x, C, k)
+// is scratch, written whole.
 
 // uv (OP, 2); is2, valid, free (OP,); kp (4,) = fx, fy, cx, cy; pose (C, 12)
 // = R row-major then t; X (L_pad, 3) -> W18 (18, OP), aux (3, OP),
@@ -1192,13 +1219,18 @@ int mcs_apply_b(const int* camid, const int* lmloc, const float* W18,
   return camera_sum(partial, grid_x, C, 6, out, as_stream(stream));
 }
 
-// Arguments of mcs_d1_assemble without free -> out (0-d, zeroed) += sum rho.
+// Arguments of mcs_d1_assemble without free (pose 16-byte, uv 8-byte
+// aligned) -> out (0-d) = sum rho; partial (ntl,) is scratch. Two launches:
+// a partial a tile, then their sum in tile order.
 int mcs_d0_cost(const int* camid, const int* lmloc, const float* uv, const float* is2,
                 const float* valid, const float* kp, const float* pose, const float* X,
-                int ntl, int TP, float* out, void* stream) {
+                int ntl, int TP, float* partial, float* out, void* stream) {
   if (ntl <= 0 || TP <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  d0_cost_kernel<<<ntl, kThreads, 0, as_stream(stream)>>>(
-      camid, lmloc, uv, is2, valid, kp, pose, X, TP, out);
+  d0_cost_kernel<<<ntl, kD0Threads, 0, as_stream(stream)>>>(
+      camid, lmloc, uv, is2, valid, kp, pose, X, TP, partial);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  d0_sum_kernel<<<1, kD0Threads, 0, as_stream(stream)>>>(partial, ntl, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,16 +5,19 @@ live in ``csrc/fast.cu`` (plain C interface), are built with ``nvcc`` for
 ``sm_90a`` into ``build/torch_kernels/`` at first use and loaded with
 ``ctypes``.
 
-- ``masked_corner_score`` (K1): two-threshold FAST-9/16 with the per-cell
-  retry, bit-identical to ``masked_corner_score_ref``.
+- ``masked_corner_score_levels`` (K1): two-threshold FAST-9/16 with the
+  per-cell retry on every pyramid level in one launch, bit-identical to
+  ``masked_corner_score_ref`` on each level; ``masked_corner_score`` is its
+  one-level case.
 - ``blur_and_moments_levels`` (K2): 7-tap Gaussian blur plus the IC moment
   maps m10/m01 of every pyramid level, one image read each, in one launch,
   within f32 rounding (FMA contraction) of ``blur_and_moments_ref`` on each
   level; ``blur_and_moments`` is its one-level case.
 
-Each wrapper takes 2-D contiguous float32 tensors. A CPU tensor goes to the
-plain version; a CUDA tensor launches the kernel or raises. ``launches``
-on each wrapper counts kernel launches (never plain-version calls).
+Each wrapper takes 2-D contiguous float32 tensors, a levels wrapper 1 to 16
+of them on one device. A CPU tensor goes to the plain version; a CUDA
+tensor launches the kernel or raises. ``launches`` on each wrapper counts
+kernel launches (never plain-version calls).
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ FAST_ARC = 9  # FAST-9: >= 9 contiguous ring pixels all brighter/darker
 HALO = 4      # ring radius 3, +1 slack
 TH = 64       # output rows are padded to a multiple of this
 CELL = 32     # threshold-retry cell; output columns pad to a multiple
+MAX_LEVELS = 16   # levels a K1 or K2 launch takes
 
 SOURCE = os.path.join(cuda_build.CSRC_DIR, "fast.cu")
 BUILD_DIR = cuda_build.BUILD_DIR
@@ -80,10 +84,36 @@ def build() -> str:
 def _library() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     return cuda_build.load(SOURCE, {
-        "mcs_masked_corner_score": [p, i, i, p, i, i, f, f, i, p],
+        "mcs_masked_corner_score": [i, p, p, p, f, f, i, p],
         "mcs_k2_set_taps": [p, i, i],
         "mcs_blur_and_moments": [i, p, p, p, p],
     })
+
+
+def _check_levels(levels) -> list:
+    """The levels as a list of checked images on one device."""
+    levels = list(levels)
+    if not 1 <= len(levels) <= MAX_LEVELS:
+        raise ValueError(f"expected 1 to {MAX_LEVELS} levels, got {len(levels)}")
+    for lv in levels:
+        if not isinstance(lv, torch.Tensor):
+            raise TypeError(f"expected a torch.Tensor, got {type(lv).__name__}")
+        if lv.device != levels[0].device:
+            raise ValueError(f"levels on {lv.device} and {levels[0].device}")
+    for lv in levels:
+        _check_image(lv)
+    return levels
+
+
+def _launch_tables(levels: Sequence[torch.Tensor], outs: Sequence[torch.Tensor]):
+    """ctypes arrays of the level images' and outputs' addresses and of
+    each level's (H, W, Hp, Wc), for a kernel's table of levels."""
+    n = len(levels)
+    imgs = (ctypes.c_void_p * n)(*(lv.data_ptr() for lv in levels))
+    optr = (ctypes.c_void_p * n)(*(o.data_ptr() for o in outs))
+    dims = (ctypes.c_int * (4 * n))(*[d for lv in levels
+                                      for d in (*lv.shape, *padded_shape(*lv.shape))])
+    return imgs, optr, dims
 
 
 def _check_image(img: torch.Tensor) -> None:
@@ -150,28 +180,73 @@ def masked_corner_score_ref(img: torch.Tensor, *, th_hi: float, th_lo: float,
     )
 
 
-def masked_corner_score(img: torch.Tensor, *, th_hi: float, th_lo: float,
-                        border: int) -> torch.Tensor:
-    """(H, W) f32 level image -> (Hp, Wc) masked two-threshold FAST score.
+def masked_corner_score_levels_ref(levels: Sequence[torch.Tensor], *, th_hi: float,
+                                   th_lo: float, border: int) -> List[torch.Tensor]:
+    """Plain torch version of ``masked_corner_score_levels``: the plain K1
+    on each level."""
+    return [masked_corner_score_ref(lv, th_hi=th_hi, th_lo=th_lo, border=border)
+            for lv in levels]
 
-    Hp = round_up(H, 64), Wc = round_up(W, 32); the pad area is zero (no
-    candidates). Requires border >= HALO so that no pixel that can score
-    reads outside the image.
-    """
-    _check_image(img)
+
+def _check_k1_args(th_hi: float, th_lo: float, border: int) -> None:
     if border < HALO:
         raise ValueError(f"border {border} < HALO {HALO}")
+    if not (th_hi >= 0.0 and th_lo >= 0.0):
+        raise ValueError(f"thresholds must be >= 0, got th_hi={th_hi}, th_lo={th_lo}")
+
+
+def _k1(levels: Sequence[torch.Tensor], th_hi: float, th_lo: float,
+        border: int) -> List[torch.Tensor]:
+    """Launches K1 once over checked CUDA levels: per level its (Hp, Wc)
+    map, contiguous views of one buffer."""
+    dev = levels[0].device
+    lib = _library()
+    shapes = [padded_shape(*lv.shape) for lv in levels]
+    with torch.cuda.device(dev):
+        buf = torch.empty(sum(hp * wc for hp, wc in shapes), dtype=torch.float32, device=dev)
+        outs = [m.view(hp, wc) for m, (hp, wc) in
+                zip(buf.split([hp * wc for hp, wc in shapes]), shapes)]
+        imgs, optr, dims = _launch_tables(levels, outs)
+        err = lib.mcs_masked_corner_score(len(levels), ctypes.addressof(imgs),
+                                          ctypes.addressof(optr), ctypes.addressof(dims),
+                                          float(th_hi), float(th_lo), int(border),
+                                          torch.cuda.current_stream().cuda_stream)
+    cuda_build.check_launch(err, "masked_corner_score")
+    return outs
+
+
+def masked_corner_score_levels(levels: Sequence[torch.Tensor], *, th_hi: float,
+                               th_lo: float, border: int) -> List[torch.Tensor]:
+    """K1 on every level of a pyramid in one launch: a list of (H_l, W_l)
+    f32 level images -> a list of (Hp_l, Wc_l) masked two-threshold FAST
+    score maps, Hp = round_up(H, 64), Wc = round_up(W, 32); the pad area is
+    zero (no candidates).
+
+    The levels lie on one device; on the card the maps are views of one
+    buffer. Requires border >= HALO, so that no pixel that can score reads
+    outside the image, and thresholds >= 0.
+    """
+    levels = _check_levels(levels)
+    _check_k1_args(th_hi, th_lo, border)
+    if levels[0].device.type == "cpu":
+        return masked_corner_score_levels_ref(levels, th_hi=th_hi, th_lo=th_lo, border=border)
+    maps = _k1(levels, th_hi, th_lo, border)
+    masked_corner_score_levels.launches += 1
+    return maps
+
+
+masked_corner_score_levels.launches = 0
+
+
+def masked_corner_score(img: torch.Tensor, *, th_hi: float, th_lo: float,
+                        border: int) -> torch.Tensor:
+    """(H, W) f32 level image -> (Hp, Wc) masked two-threshold FAST score:
+    the one-level case of ``masked_corner_score_levels``."""
+    _check_image(img)
+    _check_k1_args(th_hi, th_lo, border)
     if img.device.type == "cpu":
         return masked_corner_score_ref(img, th_hi=th_hi, th_lo=th_lo, border=border)
-    h, w = img.shape
-    hp, wc = padded_shape(h, w)
-    lib = _library()
-    with torch.cuda.device(img.device):
-        out = torch.empty((hp, wc), dtype=torch.float32, device=img.device)
-        err = lib.mcs_masked_corner_score(
-            img.data_ptr(), h, w, out.data_ptr(), hp, wc, float(th_hi),
-            float(th_lo), int(border), torch.cuda.current_stream().cuda_stream)
-    cuda_build.check_launch(err, "masked_corner_score")
+    out = _k1([img], th_hi, th_lo, border)[0]
     masked_corner_score.launches += 1
     return out
 
@@ -184,8 +259,8 @@ masked_corner_score.launches = 0
 # ---------------------------------------------------------------------------
 
 # K2's kernel is compiled for half_patch 15 (31 taps), whose moment factors
-# have rank 9 (orb._ic_moment_factors at rel_err 0.01); at most 16 levels
-K2_HALF_PATCH, K2_RANK, K2_MAX_LEVELS = 15, 9, 16
+# have rank 9 (orb._ic_moment_factors at rel_err 0.01)
+K2_HALF_PATCH, K2_RANK = 15, 9
 
 
 @functools.lru_cache(maxsize=None)
@@ -245,17 +320,13 @@ def _k2(levels: Sequence[torch.Tensor], half_patch: int) -> List[Tuple[torch.Ten
     _set_taps(dev.index)
     shapes = [padded_shape(*lv.shape) for lv in levels]
     sizes = [3 * hp * wc for hp, wc in shapes]
-    n = len(levels)
-    dims = [d for lv, hp_wc in zip(levels, shapes) for d in (*lv.shape, *hp_wc)]
     with torch.cuda.device(dev):
         buf = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
         maps = [m.view(3, hp, wc).unbind(0)
                 for m, (hp, wc) in zip(buf.split(sizes), shapes)]
-        imgs = (ctypes.c_void_p * n)(*(lv.data_ptr() for lv in levels))
-        outs = (ctypes.c_void_p * n)(*(m[0].data_ptr() for m in maps))
-        c_dims = (ctypes.c_int * (4 * n))(*dims)
-        err = lib.mcs_blur_and_moments(n, ctypes.addressof(imgs), ctypes.addressof(outs),
-                                       ctypes.addressof(c_dims),
+        imgs, optr, dims = _launch_tables(levels, [m[0] for m in maps])
+        err = lib.mcs_blur_and_moments(len(levels), ctypes.addressof(imgs),
+                                       ctypes.addressof(optr), ctypes.addressof(dims),
                                        torch.cuda.current_stream().cuda_stream)
     cuda_build.check_launch(err, "blur_and_moments")
     return maps
@@ -270,13 +341,7 @@ def blur_and_moments_levels(levels: Sequence[torch.Tensor], *, half_patch: int =
     buffer. The pad region holds the edge-extended image's maps, which
     keypoints (>= edge_threshold inside the image) never sample.
     """
-    levels = list(levels)
-    if not 1 <= len(levels) <= K2_MAX_LEVELS:
-        raise ValueError(f"expected 1 to {K2_MAX_LEVELS} levels, got {len(levels)}")
-    for lv in levels:
-        _check_image(lv)
-        if lv.device != levels[0].device:
-            raise ValueError(f"levels on {lv.device} and {levels[0].device}")
+    levels = _check_levels(levels)
     if levels[0].device.type == "cpu":
         return blur_and_moments_levels_ref(levels, half_patch=half_patch)
     maps = _k2(levels, half_patch)

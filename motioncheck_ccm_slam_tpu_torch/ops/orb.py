@@ -3,14 +3,14 @@
 Counterpart of ``motioncheck_ccm_slam_tpu/ops/orb.py``, always in the
 kernel configuration: the dense corner stage is K1 and the blur/moment maps
 are K2 (``ops/fast_cuda.py``), as the JAX extractor runs with its Pallas
-front-end. Per level:
+front-end. Before the level loop, K1 gives the per-cell-retried masked
+FAST score maps of all levels in one launch, and K2 their blur and IC
+moment maps in another. Per level:
 
-- K1 gives the per-cell-retried masked FAST score map;
-- 3x3 NMS, then per-cell and global top-k. Top-k is a stable descending
-  sort, which puts the lower index first among equal scores as
-  ``jax.lax.top_k`` does (``torch.topk`` does not);
-- K2 gives the blur and the IC moment maps of all levels in one launch,
-  before the level loop; the angle is two map lookups, steered BRIEF-256 a
+- 3x3 NMS on the score map, then per-cell and global top-k. Top-k is a
+  stable descending sort, which puts the lower index first among equal
+  scores as ``jax.lax.top_k`` does (``torch.topk`` does not);
+- the angle is two lookups in the moment maps, steered BRIEF-256 a
   batched gather on the blur.
 
 Descriptors are 256 bits packed into (K, 8) int32 words: the bits of the
@@ -112,16 +112,19 @@ def _top_k(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _select_level_keypoints(img: torch.Tensor, params: ExtractorParams,
-                            k_level: int, cell: int = 32, k_cell: int = 8):
-    """Detect + spatially distribute up to k_level keypoints on one level.
+def corner_score_kwargs(params: ExtractorParams) -> dict:
+    """K1's thresholds and border for the extractor's parameters."""
+    return dict(th_hi=float(params.ini_th_fast), th_lo=float(params.min_th_fast),
+                border=params.edge_threshold)
+
+
+def _select_level_keypoints(masked_score: torch.Tensor, k_level: int, cell: int = 32,
+                            k_cell: int = 8):
+    """Spatially distribute up to k_level keypoints on one level from its
+    K1 score map (Hp, Wc).
 
     Returns xy (k_level, 2) f32 (level coords), score (k_level,), valid.
     """
-    masked_score = fast_cuda.masked_corner_score(
-        img, th_hi=float(params.ini_th_fast), th_lo=float(params.min_th_fast),
-        border=params.edge_threshold,
-    )
     hp, wp = masked_score.shape
     corner_map = masked_score > 0.0
     keep = _nms3(masked_score) & corner_map
@@ -133,7 +136,7 @@ def _select_level_keypoints(img: torch.Tensor, params: ExtractorParams,
         .reshape(-1, cell * cell)
     )
     vals, idx = _top_k(cells, k_cell)                       # (ncells, k_cell)
-    cid = torch.arange(ny * nx, device=img.device)
+    cid = torch.arange(ny * nx, device=masked_score.device)
     py = (cid // nx)[:, None] * cell + idx // cell
     px = (cid % nx)[:, None] * cell + idx % cell
 
@@ -246,12 +249,14 @@ def extract_orb(img: torch.Tensor, params: ExtractorParams) -> OrbFeatures:
         params.max_features, params.n_levels, params.scale_factor
     )
     levels = [lvl_img.contiguous() for lvl_img in levels]
-    # K2 for all levels in one launch; the padded tail of the maps is never
-    # sampled: keypoints lie >= edge_threshold inside the level
+    # K1 and K2 for all levels in one launch each; the padded tail of K2's
+    # maps is never sampled: keypoints lie >= edge_threshold inside the level
+    scores = fast_cuda.masked_corner_score_levels(levels, **corner_score_kwargs(params))
     maps = fast_cuda.blur_and_moments_levels(levels, half_patch=params.half_patch_size)
     out_xy, out_resp, out_ang, out_oct, out_desc, out_valid = [], [], [], [], [], []
-    for l, (lvl_img, k_level, (blur, m10, m01)) in enumerate(zip(levels, budgets, maps)):
-        xy, score, valid = _select_level_keypoints(lvl_img, params, k_level)
+    for l, (lvl_img, k_level, score_map, (blur, m10, m01)) in enumerate(
+            zip(levels, budgets, scores, maps)):
+        xy, score, valid = _select_level_keypoints(score_map, k_level)
         ang = ic_angles(lvl_img, xy, (m10, m01))
         out_xy.append(xy * params.scale_factor ** l)
         out_resp.append(score)

@@ -158,7 +158,7 @@ def _library() -> ctypes.CDLL:
         "mcs_d2_precond": [p] * 4 + [i, i, p] + [i] * 4 + [p, p],
         "mcs_apply_a": [p] * 5 + [i, i, p, p],
         "mcs_apply_b": [p] * 4 + [i, i, p] + [i] * 4 + [p, p],
-        "mcs_d0_cost": [p] * 8 + [i, i, p, p],
+        "mcs_d0_cost": [p] * 8 + [i, i, p, p, p],
         "mcs_expand_streams": [p] * 4 + [i, i, p, p],
     })
 
@@ -176,6 +176,12 @@ def _check(t, name: str, dtype, shape, device: Optional[torch.device] = None) ->
         raise ValueError(f"{name}: unsupported device {t.device}")
     if device is not None and t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
+
+
+def _check_vector_aligned(name: str, pose, uv) -> None:
+    """The pose table is read by 16-byte loads and uv by 8-byte loads."""
+    if pose.data_ptr() % 16 or uv.data_ptr() % 8:
+        raise ValueError(f"{name}: pose must be 16-byte and uv 8-byte aligned (vector loads)")
 
 
 def _check_ids(camid, lmloc, TP: int) -> int:
@@ -308,9 +314,7 @@ def d1_assemble(camid, lmloc, uv, is2, valid, free, kp, pose, X, *, TP: int):
     _check(X, "X", f32, (L_pad, 3), dev)
     if dev.type == "cpu":
         return d1_assemble_ref(camid, lmloc, uv, is2, valid, free, kp, pose, X, TP=TP)
-    if pose.data_ptr() % 16 or uv.data_ptr() % 8:
-        raise ValueError("d1_assemble: pose must be 16-byte and uv 8-byte aligned "
-                         "(vector loads)")
+    _check_vector_aligned("d1_assemble", pose, uv)
     lib = _library()
     geo = launch_geometry("d1_assemble", C, TP, ntl, dev)
     with torch.cuda.device(dev):
@@ -685,7 +689,10 @@ def d0_cost(camid, lmloc, uv, is2, valid, kp, pose, X, *, TP: int):
     """K8: the robust cost of the state (pose (C, 12), X (L_pad, 3)) over
     the tile stream, a 0-d f32 tensor. Arguments as ``d1_assemble``'s
     without ``free``. Slots with valid = 0 (pads, invalid observations) add
-    exact zeros and are skipped."""
+    nothing. The kernel sums in a fixed order (a partial a tile, added in
+    tile order by a second, one-block launch), so two calls on one state
+    give the same bits; it agrees with the plain version to f32 rounding of
+    the sum."""
     ntl = _check_ids(camid, lmloc, TP)
     OP, L_pad, dev = camid.shape[0], ntl * LM_BLOCK, camid.device
     f32 = torch.float32
@@ -699,13 +706,15 @@ def d0_cost(camid, lmloc, uv, is2, valid, kp, pose, X, *, TP: int):
     _check(X, "X", f32, (L_pad, 3), dev)
     if dev.type == "cpu":
         return d0_cost_ref(camid, lmloc, uv, is2, valid, kp, pose, X, TP=TP)
+    _check_vector_aligned("d0_cost", pose, uv)
     lib = _library()
     with torch.cuda.device(dev):
-        out = torch.zeros((), dtype=f32, device=dev)
+        out = torch.empty((), dtype=f32, device=dev)
+        partial = torch.empty(ntl, dtype=f32, device=dev)
         err = lib.mcs_d0_cost(camid.data_ptr(), lmloc.data_ptr(), uv.data_ptr(),
                               is2.data_ptr(), valid.data_ptr(), kp.data_ptr(),
-                              pose.data_ptr(), X.data_ptr(), ntl, TP, out.data_ptr(),
-                              _stream())
+                              pose.data_ptr(), X.data_ptr(), ntl, TP, partial.data_ptr(),
+                              out.data_ptr(), _stream())
     cuda_build.check_launch(err, "d0_cost")
     d0_cost.launches += 1
     return out

@@ -7,7 +7,9 @@ K2 is held to the bounds the JAX package holds its own kernel to
 (tests/test_fast_pallas.py): blur atol 1e-3, moments atol 1.0 (f32
 reassociation over 18 channels x 31 taps of values up to ~1e5). K2's
 all-levels wrapper, blur_and_moments_levels, runs the plain version on each
-level of a CPU pyramid.
+level of a CPU pyramid, and so does K1's, masked_corner_score_levels: each
+of its levels is held bitwise to the Pallas kernel and to the one-level
+plain version.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -90,3 +92,33 @@ def test_blur_and_moments_levels_plain_per_level_and_pallas():
                                        interpret=True)
     for o, r, atol in zip(out[1], ref, (1e-3, 1.0, 1.0)):
         np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=0, atol=atol)
+
+
+def _k1_level_sets():
+    """name -> levels: the 8-level pyramid (DEFAULT_CONFIG's scale) of a
+    reduced 150x200 frame, whose top levels hold only a few pixels inside
+    the border, and IMAGES' odd shapes as the levels of one call."""
+    p = DEFAULT_CONFIG.extractor
+    frame = torch.from_numpy(_blobs(150, 200, 5))
+    return {
+        "pyramid_150x200": [lv.contiguous() for lv in
+                            image_ops.build_pyramid(frame, p.n_levels, p.scale_factor)],
+        "odd_shapes": [torch.from_numpy(IMAGES[n]()) for n in sorted(IMAGES)],
+    }
+
+
+@pytest.mark.parametrize("case", ["pyramid_150x200", "odd_shapes"])
+def test_masked_corner_score_levels_plain_bitwise(case):
+    p = DEFAULT_CONFIG.extractor
+    kw = dict(th_hi=float(p.ini_th_fast), th_lo=float(p.min_th_fast),
+              border=p.edge_threshold)
+    levels = _k1_level_sets()[case]
+    out = fast_cuda.masked_corner_score_levels(levels, **kw)
+    assert len(out) == len(levels)
+    assert sum(int((o > 0).sum()) for o in out) > 50, "too few corners"
+    for o, lv in zip(out, levels):
+        assert tuple(o.shape) == fast_cuda.padded_shape(*lv.shape)
+        assert torch.equal(o, fast_cuda.masked_corner_score_ref(lv, **kw))
+        ref = np.asarray(fast_pallas.masked_corner_score(jnp.asarray(lv.numpy()),
+                                                         interpret=True, **kw))
+        np.testing.assert_array_equal(o.numpy(), ref)

@@ -6,13 +6,16 @@ A CPU tensor runs the plain version and counts no launch; a malformed
 argument raises. The tests marked ``cuda`` need an NVIDIA GPU and skip
 elsewhere; on the card (``python -m pytest --noconftest -m cuda
 tests/test_torch_kernel_wrappers.py``) they hold each kernel against its
-plain version: K1 bitwise, K2 within blur 1e-3 / moments 1.0 (FMA
-contraction), one level at a time and five levels in one launch; K3-K7 relative to each output's max-abs within 1e-4 (sums
+plain version: K1 bitwise, one level at a time and all levels of a frame
+in one launch (rendered, noise, constant, and levels smaller than a cell);
+K2 within blur 1e-3 / moments 1.0 (FMA contraction), one level at a time
+and five levels in one launch; K3-K7 relative to each output's max-abs within 1e-4 (sums
 of ~30 terms taken by atomics in no fixed order, FMA contraction), and
 within 1e-3 for what is computed from residuals (rho, chi2, bl, bc: a
 residual is ~1e3 times smaller than the projection it is taken from, so
 one ulp there is ~1e-4 of it); K8 within 1e-5 relative (the same per-slot
-cost summed in another order); K9 bitwise (it moves data); the plan-form
+cost summed in another order), two calls bitwise equal (a fixed order),
+at bench_gba's shapes and the edge shapes; K9 bitwise (it moves data); the plan-form
 products within 1e-4 of each output's max-abs, as K6/K7. K3, K4, K5, K7
 and the plan-form apply_b and schur_apply are also held, at 1e-4, at the
 edge shapes of ``chip_smoke.EDGE_CASES`` (K6 and the plan-form apply_a at
@@ -108,6 +111,40 @@ def test_levels_wrapper_rejects_malformed_levels(bad):
         fast_cuda.blur_and_moments_levels(arg)
 
 
+def test_corner_score_levels_wrapper_routes_cpu_levels_to_plain_versions():
+    levels = _levels([(70, 90), (40, 50), (33, 21)])
+    n1, n2 = (fast_cuda.masked_corner_score_levels.launches,
+              fast_cuda.masked_corner_score.launches)
+    out = fast_cuda.masked_corner_score_levels(levels, **K1_ARGS)
+    assert len(out) == len(levels)
+    for o, lv in zip(out, levels):
+        assert torch.equal(o, fast_cuda.masked_corner_score_ref(lv, **K1_ARGS))
+    assert fast_cuda.masked_corner_score_levels.launches == n1
+    assert fast_cuda.masked_corner_score.launches == n2
+
+
+@pytest.mark.parametrize("bad", ["no_levels", "17_levels", "mixed_devices", "strided",
+                                 "float64", "border_3", "negative_threshold"])
+def test_corner_score_levels_wrapper_rejects_malformed_levels(bad):
+    levels = _levels([(70, 90), (40, 50)])
+    kw = dict(K1_ARGS)
+    arg = {
+        "no_levels": [],
+        "17_levels": levels[:1] * 17,
+        "mixed_devices": [levels[0], levels[1].to("meta")],
+        "strided": [levels[0], levels[1][:, ::2]],
+        "float64": [levels[0], levels[1].double()],
+    }.get(bad, levels)
+    if bad == "border_3":
+        kw["border"] = 3
+    if bad == "negative_threshold":
+        kw["th_lo"] = -1.0
+    match = {"mixed_devices": "levels on", "border_3": "HALO",
+             "negative_threshold": ">= 0"}.get(bad)
+    with pytest.raises((TypeError, ValueError), match=match):
+        fast_cuda.masked_corner_score_levels(arg, **kw)
+
+
 def test_corner_score_rejects_border_inside_halo():
     with pytest.raises(ValueError, match="HALO"):
         fast_cuda.masked_corner_score(_img(), th_hi=20.0, th_lo=7.0, border=3)
@@ -140,6 +177,53 @@ def test_kernels_match_plain_versions_on_card(cuda_device, shape):
     assert torch.equal(out, fast_cuda.masked_corner_score_ref(img, **K1_ARGS))
     for m, r, atol in zip(maps, fast_cuda.blur_and_moments_ref(img), (1e-3, 1.0, 1.0)):
         torch.testing.assert_close(m, r, rtol=0, atol=atol)
+
+
+def _k1_card_levels(frame: str, device):
+    """K1's card inputs: the 8 levels of a rendered 752x480 frame
+    (chip_smoke.PlaneScene), uniform noise at the same shapes (many corners,
+    so that the second pass diverges), a constant image at those shapes (no
+    corners), and levels smaller than one 32x32 cell."""
+    from motioncheck_ccm_slam_tpu_torch.config import DEFAULT_CONFIG
+    from motioncheck_ccm_slam_tpu_torch.ops import image as image_ops
+
+    ex = DEFAULT_CONFIG.extractor
+    img = torch.from_numpy(chip_smoke.PlaneScene(DEFAULT_CONFIG.camera).render(1)).to(device)
+    rendered = [lv.contiguous() for lv in
+                image_ops.build_pyramid(img, ex.n_levels, ex.scale_factor)]
+    rng = np.random.default_rng(3)
+    shapes = {"tiny": [(20, 24), (9, 31), (31, 17)]}.get(frame, [tuple(lv.shape)
+                                                                for lv in rendered])
+    if frame == "rendered":
+        return rendered
+    if frame == "constant":
+        return [torch.full(s, 128.0, device=device) for s in shapes]
+    return [torch.from_numpy(rng.uniform(0, 255, s).astype(np.float32)).to(device)
+            for s in shapes]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("frame", ["rendered", "noise", "constant", "tiny"])
+def test_k1_levels_match_plain_versions_on_card(cuda_device, frame):
+    """K1 over all levels in one launch, bitwise equal to the plain version
+    on each level; each map a contiguous view of the right shape."""
+    levels = _k1_card_levels(frame, cuda_device)
+    kw = dict(K1_ARGS, border=4) if frame == "tiny" else K1_ARGS
+    n1, n2 = (fast_cuda.masked_corner_score_levels.launches,
+              fast_cuda.masked_corner_score.launches)
+    out = fast_cuda.masked_corner_score_levels(levels, **kw)
+    torch.cuda.synchronize()
+    assert fast_cuda.masked_corner_score_levels.launches == n1 + 1
+    assert fast_cuda.masked_corner_score.launches == n2
+    corners = 0
+    for o, lv in zip(out, levels):
+        ref = fast_cuda.masked_corner_score_ref(lv, **kw)
+        assert o.is_contiguous() and tuple(o.shape) == fast_cuda.padded_shape(*lv.shape)
+        assert torch.equal(o, ref), tuple(lv.shape)
+        corners += int((ref > 0).sum())
+    want = {"rendered": corners > 0, "noise": corners > 10_000, "constant": corners == 0,
+            "tiny": corners > 0}
+    assert want[frame], corners
 
 
 @pytest.mark.cuda
@@ -361,6 +445,44 @@ def test_plan_kernels_match_plain_versions_on_card(cuda_device):
             assert abs(float(out) - float(want)) <= 1e-5 * float(want)
         else:
             assert _relmax(out, want) < 1e-4, name
+
+
+def _k8_args(name: str, device):
+    """K8's arguments and TP: bench_gba's problem at its true state, or an
+    edge shape of chip_smoke.EDGE_CASES with its seeded projective state."""
+    if name == "bench_gba":
+        from motioncheck_ccm_slam_tpu_torch.entry import gba_problem
+
+        Tcw, Xw, obs, K, fixed_cam, fixed_lm = gba_problem(device)
+        C, L = Tcw.shape[0], Xw.shape[0]
+        tp = sharded_ba.build_tile_plan(obs, C, L)
+        fl_pad = torch.cat([fixed_lm, torch.ones(tp.L_pad - L, dtype=torch.bool,
+                                                 device=device)])
+        st = sharded_ba.tile_streams(tp, obs, K, fixed_cam, fl_pad)
+        X = torch.cat([Xw, torch.zeros((tp.L_pad - L, 3), device=device)])
+        return (tp.camid, tp.lmloc, st.uv, st.is2, st.valid, st.kp,
+                schur_cuda.pose_table(Tcw), X), tp.TP
+    _, C, L, per_lm, tiles = next(c for c in chip_smoke.EDGE_CASES if c[0] == name)
+    plan, _, _, _, _, state = chip_smoke.edge_case(C, L, per_lm, tiles, device, state=True)
+    uv, is2, valid, _free, kp, pose, X = state
+    return (plan.camid, plan.lmloc, uv, is2, valid, kp, pose, X), plan.TP
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["bench_gba"] + [c[0] for c in chip_smoke.EDGE_CASES])
+def test_k8_two_calls_bitwise_equal_on_card(cuda_device, name):
+    """K8 sums in a fixed order: two calls on one state give the same bits,
+    within 1e-5 relative of the plain version (the same per-slot costs
+    summed in another order), at bench_gba's shapes and the edge shapes
+    (a tile of pad slots only among them)."""
+    args, TP = _k8_args(name, cuda_device)
+    n = schur_cuda.d0_cost.launches
+    a, b = schur_cuda.d0_cost(*args, TP=TP), schur_cuda.d0_cost(*args, TP=TP)
+    torch.cuda.synchronize()
+    assert schur_cuda.d0_cost.launches == n + 2
+    want = float(schur_cuda.d0_cost_ref(*args, TP=TP))
+    assert torch.equal(a, b), (float(a), float(b))
+    assert want > 0 and abs(float(a) - want) <= 1e-5 * want, (float(a), want)
 
 
 # ---------------------------------------------------------------------------

@@ -92,16 +92,17 @@ def test_extract_orb_all_levels_close(extracted):
 
 
 def _extract_orb_level_by_level(img, params):
-    """extract_orb with the one-level K2 called inside the level loop, on
-    each level after its keypoints, as the loop ran before K2 took all
-    levels in one launch."""
+    """extract_orb with the one-level K1 and K2 called inside the level
+    loop, on each level in turn, as the loop ran before K1 and K2 took all
+    levels in one launch each."""
     levels = image_ops.build_pyramid(img, params.n_levels, params.scale_factor)
     budgets = torb.level_feature_budgets(params.max_features, params.n_levels,
                                          params.scale_factor)
     parts = []
     for l, (lvl_img, k_level) in enumerate(zip(levels, budgets)):
         lvl_img = lvl_img.contiguous()
-        xy, score, valid = torb._select_level_keypoints(lvl_img, params, k_level)
+        score_map = fast_cuda.masked_corner_score(lvl_img, **torb.corner_score_kwargs(params))
+        xy, score, valid = torb._select_level_keypoints(score_map, k_level)
         blur, m10, m01 = fast_cuda.blur_and_moments(lvl_img, half_patch=params.half_patch_size)
         ang = torb.ic_angles(lvl_img, xy, (m10, m01))
         parts.append((xy * params.scale_factor ** l, score, ang,

@@ -36,8 +36,23 @@ apply_a_kernel whole, so --source takes either design (in the design with
 warp run sums, run_sums_atomics is the kernel as it is); each is called
 twice on one input and the two results compared bitwise.
 
+K8 (--only k8), at bench_gba's shapes and state. The design with one
+atomicAdd a block into a zeroed output (the csrc/schur.cu before K8's
+redesign) gets the kernel as it is and copies (K8_ATOMIC_VARIANTS): the
+pose gather as three 16-byte loads (load_pose_vec, as K3's), uv read as
+one float2, no pose load at all (a fixed pose: wrong cost, timed only),
+the block's atomicAdd replaced by a plain store of its partial (the
+partials then summed by torch), and the three right ones together. The
+design with a partial a tile, summed in tile order by a second launch,
+gets the kernel as it is and copies with 256 threads a block, without
+its register cap, with its slot loop unrolled by the compiler, or
+finishing with one atomicAdd a block instead of the ordered sum
+(K8_VARIANTS); ptxas's registers are printed for each. Each copy is
+called twice on one state, the two costs compared bitwise and with the
+plain version.
+
 Usage (on the card): python3 tools/torch_schur_probe.py
-    [--only k3_k5|k4_k7|k6] [--source PATH]
+    [--only k3_k5|k4_k7|k6|k8] [--source PATH]
 """
 import argparse
 import ctypes
@@ -148,7 +163,8 @@ K3K5_VARIANTS = {
                         (_K5_ROW, _K5_ROW.replace("false", "true"))],
     # K3's pose gather as twelve 4-byte loads instead of three 16-byte ones
     "k3_scalar_pose_loads": [("  load_pose_vec(P.pose, cam, R, t);",
-                              "  load_pose(P.pose, cam, R, t);")],
+                              "  for (int q = 0; q < 9; ++q) R[q] = __ldg(P.pose + cam * 12 + q);\n"
+                              "  for (int q = 0; q < 3; ++q) t[q] = __ldg(P.pose + cam * 12 + 9 + q);")],
     # half the threads a block, twice the registers a thread
     "threads_512": [("constexpr int kD1Threads = 1024;", "constexpr int kD1Threads = 512;"),
                     ("constexpr int kD2Threads = 1024;", "constexpr int kD2Threads = 512;")],
@@ -233,6 +249,83 @@ K6_VARIANTS = {
 }
 
 
+# K8's copies in the design with one atomicAdd a block: (text, the copy's
+# text instead)
+_K8_POSE = ("    load_pose(pose, cam, R, t);\n", "    load_pose_vec(pose, cam, R, t);\n")
+_K8_UV = ("    acc += project_slot(R, t, x_s[0][l], x_s[1][l], x_s[2][l], uv[2 * s], uv[2 * s + 1],",
+          "    const float2 q = __ldg(reinterpret_cast<const float2*>(uv) + s);\n"
+          "    acc += project_slot(R, t, x_s[0][l], x_s[1][l], x_s[2][l], q.x, q.y,")
+_K8_NO_POSE = (_K8_POSE[0],
+               "    for (int q = 0; q < 9; ++q) R[q] = q % 4 == 0 ? 1.0f : 0.0f;\n"
+               "    t[0] = static_cast<float>(cam) * 1e-9f;\n    t[1] = 0.0f;\n    t[2] = 4.0f;\n")
+_K8_STORE = ("    if (threadIdx.x == 0) atomicAdd(out, acc);",
+             "    if (threadIdx.x == 0) out[blockIdx.x] = acc;")
+K8_ATOMIC_VARIANTS = {
+    "as_is": [],
+    "pose_vec": [_K8_POSE],
+    "uv_float2": [_K8_UV],
+    "no_pose": [_K8_NO_POSE],
+    "partial_store": [_K8_STORE],
+    "pose_vec_uv_float2_partial_store": [_K8_POSE, _K8_UV, _K8_STORE],
+}
+# the design with a partial a tile: its constants, and the finish
+_K8_THREADS = "constexpr int kD0Threads = 512;"
+K8_VARIANTS = {
+    "as_is": [],
+    "threads_256": [(_K8_THREADS, _K8_THREADS.replace("512", "256"))],
+    # no register cap from a minimum of blocks an SM
+    "no_min_blocks": [("__launch_bounds__(kD0Threads, kD0MinBlocks)",
+                       "__launch_bounds__(kD0Threads)")],
+    # the slot loop left to the compiler's unrolling
+    "unrolled": [("#pragma unroll 1                    // unrolled, the loop takes 40 registers\n",
+                  "")],
+    # one atomicAdd a block into the zeroed out, no second launch
+    # (into partial[0], zeroed by the caller)
+    "atomic_finish": [
+        ("  if (threadIdx.x == 0) partial[blockIdx.x] = sum;",
+         "  if (threadIdx.x == 0) atomicAdd(partial, sum);"),
+        ("  if (e != cudaSuccess) return static_cast<int>(e);\n  d0_sum_kernel",
+         "  if (true) return static_cast<int>(e);\n  d0_sum_kernel")],
+}
+
+
+def k8_atomic_design(src: str) -> bool:
+    """Whether src has K8 with one atomicAdd a block into a zeroed output."""
+    return _K8_STORE[0] in src
+
+
+def k8_part(libs: dict, atomic: bool, pb: dict, dev) -> None:
+    tp, d1 = pb["tp"], pb["d1_args"]
+    args = d1[:5] + d1[6:]                   # d1_assemble's without free
+    ref = float(sc.d0_cost_ref(*args, TP=tp.TP))
+    ptrs = [a.data_ptr() for a in args]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name, path in libs.items():
+        if atomic:
+            lib = cuda_build.load(path, {"mcs_d0_cost": [p] * 8 + [i, i, p, p]})
+
+            def k8():
+                out = torch.zeros(tp.ntl, device=dev)   # a partial a block, or out[0]
+                err = lib.mcs_d0_cost(*ptrs, tp.ntl, tp.TP, out.data_ptr(), sc._stream())
+                cuda_build.check_launch(err, "probe d0_cost")
+                return out.sum()
+        else:
+            lib = cuda_build.load(path, {"mcs_d0_cost": [p] * 8 + [i, i, p, p, p]})
+
+            def k8(atomic=name == "atomic_finish"):
+                out = torch.empty((), device=dev)
+                partial = (torch.zeros if atomic else torch.empty)(tp.ntl, device=dev)
+                err = lib.mcs_d0_cost(*ptrs, tp.ntl, tp.TP, partial.data_ptr(),
+                                      out.data_ptr(), sc._stream())
+                cuda_build.check_launch(err, "probe d0_cost")
+                return partial[0] if atomic else out
+        a, b = k8(), k8()
+        torch.cuda.synchronize()
+        rel = abs(float(a) - ref) / abs(ref)
+        print(f"{name} K8: {cs.cuda_ms(k8, 30):.4f} ms in {tp.ntl} blocks, relative error "
+              f"{rel:.2g}; two calls bitwise equal: {torch.equal(a, b)}")
+
+
 def k6_kernel_text(src: str) -> str:
     """The source's apply_a_kernel, from its __global__ line to its end."""
     start = src.index("__global__ void __launch_bounds__(kThreads)\napply_a_kernel(")
@@ -294,7 +387,14 @@ def build_all(src: str, variants: dict) -> dict:
         with open(paths[name], "w") as f:
             f.write(instrumented(src, edits, some))
     with ThreadPoolExecutor(len(paths)) as pool:
-        list(pool.map(cuda_build.build, paths.values()))
+        logs = list(pool.map(cuda_build.build, paths.values()))
+    for name, log in zip(paths, logs):      # K8's registers
+        show = False
+        for line in log.splitlines():
+            if "Function properties for" in line:
+                show = name.startswith("k8_") and "d0_cost" in line
+            elif show and ("registers" in line or "stack frame" in line):
+                print(f"  {name}: {line.strip()}")
     return paths
 
 
@@ -452,7 +552,7 @@ def k6_part(libs: dict, pb: dict, dev) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("k3_k5", "k4_k7", "k6"))
+    ap.add_argument("--only", choices=("k3_k5", "k4_k7", "k6", "k8"))
     ap.add_argument("--source", default=sc.SOURCE)
     a = ap.parse_args()
     if not torch.cuda.is_available():
@@ -461,7 +561,7 @@ def main() -> None:
     with open(a.source) as f:
         src = f.read()
     legacy = legacy_k3_k5(src)
-    parts = ("k4_k7", "k3_k5", "k6") if a.only is None else (a.only,)
+    parts = ("k4_k7", "k3_k5", "k6", "k8") if a.only is None else (a.only,)
     variants = {}
     if "k4_k7" in parts:
         variants.update({f"k4k7_{n}": (e, False) for n, e in VARIANTS.items()})
@@ -471,7 +571,13 @@ def main() -> None:
     if "k6" in parts:       # each copy's kernel in place of the source's
         variants.update({f"k6_{n}": ([] if t is None else [(k6_kernel_text(src), t)], False)
                          for n, t in K6_VARIANTS.items()})
-    libs = {name: load(path, legacy) for name, path in build_all(src, variants).items()}
+    atomic_k8 = k8_atomic_design(src)
+    if "k8" in parts:
+        variants.update({f"k8_{n}": (e, False) for n, e in
+                         (K8_ATOMIC_VARIANTS if atomic_k8 else K8_VARIANTS).items()})
+    paths = build_all(src, variants)
+    libs = {name: load(path, legacy) for name, path in paths.items()
+            if not name.startswith("k8_")}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip()
@@ -485,6 +591,9 @@ def main() -> None:
                    pb, dev)
     if "k6" in parts:
         k6_part({n[3:]: lib for n, lib in libs.items() if n.startswith("k6_")}, pb, dev)
+    if "k8" in parts:
+        k8_part({n[3:]: path for n, path in paths.items() if n.startswith("k8_")}, atomic_k8,
+                pb, dev)
 
 
 if __name__ == "__main__":
