@@ -72,9 +72,29 @@ at capacity (2048 keyframes x 1024 features, 65,536 landmarks, 4 clients):
     seconds split into solver (and its host-built plan), Motion Check and
     the rest of the driver.
 
+The agent from a blank map (system/client.ClientSystem at the EuRoC
+operating point: 752x480, 8 levels, 1024 feature slots, a client map of
+96 keyframes x 8192 landmarks):
+
+14. feed 60 frames of phase 5's rendered wall, given a relief of +-0.4 m
+    (relocalization's DLT-PnP, as the JAX package's, finds no pose on
+    coplanar landmarks), frames 40-43 zeroed (a
+    blackout; it moves later, up to 80 frames in all, until the map holds
+    6 keyframes, since with 5 or fewer a loss resets the map) to
+    ClientSystem.process_image: two-view initialization, tracking,
+    keyframes with local mapping and local BA, relocalization. Gates: OK
+    by frame 10; every frame after initialization OK but the blackout and
+    at most 5 frames after it; >= 6 keyframes before the blackout; a
+    relocalization; >= 300 landmarks; check_structure clean; the
+    Sim3-aligned ATE of the OK frames <= 0.10 m; K1 and K2 launched once a
+    frame, blackout frames included. Prints each frame, and the median ms
+    of a tracking frame and of a keyframe frame (tracking, mapping, local
+    BA), the initialization frame's ms with its batched SVDs' share, and
+    the relocalization frame's ms (not gated).
+
 Prints a JSON line of step results, one of GBA results, one each of the
-matrix-free GBA's and the driver's results, one of kernel results, the
-card's name and power limit and, last, the contract line
+matrix-free GBA's, the driver's and the agent's results, one of kernel
+results, the card's name and power limit and, last, the contract line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a GPU it exits non-zero before printing any result.
 
@@ -155,6 +175,16 @@ MF_SYMBOL = {"K9": "expand_streams_kernel", "K6": "apply_a_kernel", "K7": "apply
 # corrupted GBA, and the outcome bounds of tests/test_mc_gating.py
 KICK_SLOTS = range(200, 264)
 MC_ATE_RATIO, NO_MC_MIN_ATE_M = 0.1, 0.3
+# phase 14, the agent from a blank map: a 4-frame blackout from frame 40 (or
+# the first frame after it whose map holds 6 keyframes: with 5 or fewer a
+# loss resets the map instead of relocalizing), then 16 frames, at most 80
+# frames in all; its gates
+AGENT_BLACKOUT_AT, AGENT_BLACKOUT, AGENT_AFTER, AGENT_MAX_FRAMES = 40, 4, 16, 80
+AGENT_MIN_KFS, AGENT_INIT_BY, AGENT_RECOVERY = 6, 10, 5
+AGENT_MIN_MPS, AGENT_MAX_ATE_M = 300, 0.10
+# phase 14's wall relief (+-0.4 m at 4 m, a 4 m pitch): the DLT-PnP of
+# relocalization finds no pose on a flat wall
+AGENT_RELIEF_M, RELIEF_PITCH = 0.4, 4.0
 
 
 # The camera-table kernels' edge shapes (K3, K4, K5, K7): (name, C, L,
@@ -183,12 +213,17 @@ class PlaneScene:
 
     The wall holds a low-frequency background and anti-aliased blobs on a
     jittered grid, all painted in wall coordinates, so every rendered
-    pixel is a known point of the plane.
+    pixel is a known point of the wall. With ``relief`` > 0 the wall is
+    not flat: its depth varies by +-relief metres (a product of sines of
+    RELIEF_PITCH metres along x and y). Relocalization needs that: its
+    DLT-PnP (ops/ransac.pnp_ransac, as the JAX package's) is degenerate on
+    coplanar landmarks.
     """
 
-    def __init__(self, cam, seed: int = 0, depth: float = 4.0, step: float = 0.045):
+    def __init__(self, cam, seed: int = 0, depth: float = 4.0, step: float = 0.045,
+                 relief: float = 0.0):
         rng = np.random.default_rng(seed)
-        self.cam, self.depth, self.step = cam, depth, step
+        self.cam, self.depth, self.step, self.relief = cam, depth, step, relief
         h, w = cam.height, cam.width
         yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
         xd, yd = (xx - cam.cx) / cam.fx, (yy - cam.cy) / cam.fy
@@ -219,9 +254,19 @@ class PlaneScene:
         T[:3, 3] = -self.center(k)
         return T
 
+    def wall_depth(self, x, y):
+        """The wall's depth at world (x, y)."""
+        return self.depth + self.relief * (np.sin(2 * np.pi * x / RELIEF_PITCH)
+                                           * np.cos(2 * np.pi * y / RELIEF_PITCH))
+
     def render(self, k: int) -> np.ndarray:
         C = self.center(k)
         s = self.depth - C[2]
+        if self.relief:
+            # each pixel's ray meets the wall at depth s: a fixed-point
+            # iteration, contracting by <= 0.52 a step at this relief
+            for _ in range(16):
+                s = self.wall_depth(C[0] + s * self.rays[0], C[1] + s * self.rays[1]) - C[2]
         px = C[0] + s * self.rays[0] - self.origin[0]
         py = C[1] + s * self.rays[1] - self.origin[1]
         u, v = px / self.bg_cell, py / self.bg_cell
@@ -1212,6 +1257,163 @@ def driver_phases(device, smi: str) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def timed_agent(client):
+    """Time the client's parts, each ending in a device synchronize: the
+    tracking of a frame, its keyframe's mapping and the local BA within
+    it, and torch.linalg.svd while ``svd_on`` is set (the initialization
+    frames). Yields a dict of the current frame's milliseconds."""
+    from motioncheck_ccm_slam_tpu_torch.models import mapping as mapping_mod
+
+    ms = {"track": 0.0, "map": 0.0, "ba": 0.0, "svd": 0.0, "svd_on": False}
+
+    def timed(part, f):
+        def call(*a, **kw):
+            if part == "svd" and not ms["svd_on"]:
+                return f(*a, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = f(*a, **kw)
+            torch.cuda.synchronize()
+            ms[part] += (time.perf_counter() - t0) * 1e3
+            return out
+        return call
+
+    saved = (client.tracker.process, client.mapper.process_keyframe, mapping_mod.run_local_ba,
+             torch.linalg.svd)
+    client.tracker.process = timed("track", saved[0])
+    client.mapper.process_keyframe = timed("map", saved[1])
+    mapping_mod.run_local_ba = timed("ba", saved[2])
+    torch.linalg.svd = timed("svd", saved[3])
+    try:
+        yield ms
+    finally:
+        del client.tracker.process, client.mapper.process_keyframe
+        mapping_mod.run_local_ba, torch.linalg.svd = saved[2:]
+
+
+def agent_phase(device, smi: str) -> dict:
+    """Phase 14: the agent from a blank map, through the port's
+    ClientSystem at the EuRoC operating point. Returns its results."""
+    from motioncheck_ccm_slam_tpu_torch.config import DEFAULT_CONFIG
+    from motioncheck_ccm_slam_tpu_torch.models.map_state import check_structure
+    from motioncheck_ccm_slam_tpu_torch.models.tracking import TrackState
+    from motioncheck_ccm_slam_tpu_torch.ops import fast_cuda
+    from motioncheck_ccm_slam_tpu_torch.system.client import ClientSystem
+    from motioncheck_ccm_slam_tpu_torch.utils.csv_io import ate_rmse
+
+    cfg = DEFAULT_CONFIG
+    cap = cfg.capacity
+    scene = PlaneScene(cfg.camera, relief=AGENT_RELIEF_M)
+    client = ClientSystem(cfg, device=device)
+    blank = np.zeros((cfg.camera.height, cfg.camera.width), np.float32)
+    print(f"phase 14 agent: {cfg.camera.width}x{cfg.camera.height}, {cfg.extractor.n_levels} "
+          f"levels, {cfg.extractor.max_features} feature slots, client map "
+          f"{cap.client_max_kfs} keyframes x {cap.client_max_mps} landmarks")
+    torch.cuda.synchronize()
+    for f in (fast_cuda.masked_corner_score_levels, fast_cuda.masked_corner_score,
+              fast_cuda.blur_and_moments_levels, fast_cuda.blur_and_moments):
+        f.launches = 0
+    log, blackout = [], None
+    with timed_agent(client) as part:
+        k = 0
+        while blackout is None or k < blackout + AGENT_BLACKOUT + AGENT_AFTER:
+            # the blackout starts at the first frame from AGENT_BLACKOUT_AT
+            # on whose map holds enough keyframes to relocalize, not reset
+            if blackout is None and k >= AGENT_BLACKOUT_AT and client.map.n_kfs >= AGENT_MIN_KFS:
+                blackout = k
+            check(blackout is not None or k <= AGENT_MAX_FRAMES - AGENT_BLACKOUT - AGENT_AFTER,
+                  f"{AGENT_MIN_KFS} keyframes not reached in "
+                  f"{AGENT_MAX_FRAMES - AGENT_BLACKOUT - AGENT_AFTER} frames")
+            dark = blackout is not None and k < blackout + AGENT_BLACKOUT
+            state0, n_kf0, relocs0 = client.tracker.state, client.mapper.next_kf_id, \
+                client.tracker.n_relocs
+            part.update(track=0.0, map=0.0, ba=0.0, svd=0.0,
+                        svd_on=state0 == TrackState.NOT_INITIALIZED)
+            img = blank if dark else scene.render(k)     # on the host, not timed
+            t0 = time.perf_counter()
+            client.process_image(img, k / cfg.camera.fps)
+            torch.cuda.synchronize()
+            total = (time.perf_counter() - t0) * 1e3
+            kind = ("init" if state0 == TrackState.NOT_INITIALIZED
+                    and client.tracker.state == TrackState.OK
+                    else "reloc" if client.tracker.n_relocs > relocs0
+                    else "keyframe" if client.mapper.next_kf_id > n_kf0
+                    else "dark" if dark else "track")
+            log.append(dict(k=k, kind=kind, state=client.tracker.state.name, ms=total,
+                            track_ms=part["track"], map_ms=part["map"] - part["ba"],
+                            ba_ms=part["ba"], svd_ms=part["svd"], kfs=client.map.n_kfs,
+                            mps=client.map.n_mps))
+            k += 1
+    n_frames = k
+    launches = {"masked_corner_score": fast_cuda.masked_corner_score_levels.launches,
+                "blur_and_moments": fast_cuda.blur_and_moments_levels.launches}
+    for r in log:
+        print(f"  frame {r['k']:2d}: {r['state']:9s} {r['kind']:8s} {r['ms']:8.1f} ms "
+              f"(tracking {r['track_ms']:.1f}, mapping {r['map_ms']:.1f}, local BA "
+              f"{r['ba_ms']:.1f}) {r['kfs']:2d} KFs {r['mps']:5d} landmarks")
+    if blackout != AGENT_BLACKOUT_AT:
+        print(f"phase 14: the blackout moved to frames {blackout}-{blackout + AGENT_BLACKOUT - 1}"
+              f" (fewer than {AGENT_MIN_KFS} keyframes by frame {AGENT_BLACKOUT_AT})")
+
+    states = [r["state"] for r in log]
+    check("OK" in states[:AGENT_INIT_BY + 1], f"not initialized by frame {AGENT_INIT_BY}")
+    init = states.index("OK")
+    lost = [r["k"] for r in log if r["state"] != "OK" and init < r["k"] < blackout
+            or r["k"] >= blackout + AGENT_BLACKOUT + AGENT_RECOVERY and r["state"] != "OK"]
+    check(not lost, f"frames lost outside the blackout and its recovery: {lost}")
+    kfs_before = log[blackout - 1]["kfs"]
+    check(kfs_before >= AGENT_MIN_KFS, f"{kfs_before} keyframes before the blackout")
+    check(client.tracker.n_relocs >= 1, "no relocalization after the blackout")
+    n_mps = client.map.n_mps
+    check(n_mps >= AGENT_MIN_MPS, f"{n_mps} landmarks in the map")
+    problems = check_structure(client.map)
+    check(not problems, f"check_structure: {problems}")
+    ok = np.array(client.tracker.trajectory_ok)
+    est = np.stack([-T[:3, :3].T @ T[:3, 3] for _, T in client.tracker.trajectory])[ok]
+    truth = np.stack([scene.center(r["k"]) for r in log])[ok]
+    ate, ate_max = ate_rmse(est, truth)
+    check(ate <= AGENT_MAX_ATE_M, f"ATE {ate:.4f} m")
+    for name, n in launches.items():
+        check(n == n_frames, f"{name} launched {n} times in {n_frames} frames")
+    check(fast_cuda.masked_corner_score.launches == 0 and fast_cuda.blur_and_moments.launches == 0,
+          "the agent used a one-level K1 or K2 wrapper")
+
+    def med(kind, key="ms"):
+        vals = [r[key] for r in log if r["kind"] == kind]
+        return statistics.median(vals) if vals else None
+
+    init_r = log[init]
+    reloc_r = next(r for r in log if r["kind"] == "reloc")
+    out = {
+        "card": smi, "frames": n_frames, "blackout": [blackout, blackout + AGENT_BLACKOUT - 1],
+        "init_frame": init, "relocalized_frame": reloc_r["k"], "n_relocs": client.tracker.n_relocs,
+        "keyframes_created": client.mapper.next_kf_id, "kfs_before_blackout": kfs_before,
+        "kfs": client.map.n_kfs, "landmarks": n_mps, "ate_m": ate, "ate_max_m": ate_max,
+        "launches": launches,
+        "track_frame_ms": med("track"),
+        "keyframe_ms": med("keyframe"), "keyframe_track_ms": med("keyframe", "track_ms"),
+        "keyframe_mapping_ms": med("keyframe", "map_ms"),
+        "keyframe_local_ba_ms": med("keyframe", "ba_ms"),
+        "init_frame_ms": init_r["ms"], "init_svd_ms": init_r["svd_ms"],
+        "init_svd_share": init_r["svd_ms"] / init_r["ms"],
+        "reloc_frame_ms": reloc_r["ms"],
+    }
+    print(f"phase 14 agent: initialized at frame {init}, {out['keyframes_created']} keyframes "
+          f"made ({kfs_before} before the blackout), {client.map.n_kfs} in the map, {n_mps} "
+          f"landmarks, relocalized at frame {reloc_r['k']}, ATE {ate:.4f} m (max "
+          f"{ate_max:.4f}) over {int(ok.sum())} OK frames, launches {launches}")
+    print(f"phase 14 times on {smi}: tracking frame median {out['track_frame_ms']:.1f} ms; "
+          f"keyframe frame median {out['keyframe_ms']:.1f} ms = tracking "
+          f"{out['keyframe_track_ms']:.1f} + mapping (triangulate, fuse, cull, trim) "
+          f"{out['keyframe_mapping_ms']:.1f} + local BA {out['keyframe_local_ba_ms']:.1f}; "
+          f"initialization frame {out['init_frame_ms']:.1f} ms (batched SVDs "
+          f"{out['init_svd_ms']:.1f} ms, {100 * out['init_svd_share']:.1f}%); relocalization "
+          f"frame {out['reloc_frame_ms']:.1f} ms")
+    print(json.dumps({"agent": out}))
+    return out
+
+
 def main() -> None:
     # phase 1: the card
     if not torch.cuda.is_available():
@@ -1433,6 +1635,7 @@ def main() -> None:
     records.update(mf_phases(device, smi, ctx))
     del ctx
     driver_phases(device, smi)
+    agent_phase(device, smi)
 
     print(json.dumps({"step_ms": step_med["kernel"], "step_plain_ms": step_med["plain"],
                       "final_centre_error_m": errs[-1], "card": smi}))

@@ -11,8 +11,9 @@ result of ``torch.where`` or of ``index_put`` on a clone), so a reference
 to an older block, such as the GBA job's pre-GBA snapshot, never sees a
 later write.
 
-Covisibility, descriptor/normal refresh and the structure checker belong
-to the client-mapping slice and are not here yet.
+Derived structures the reference maintains incrementally (covisibility
+weights, observation lists, per-landmark observation counts) are recomputed
+on the device when needed from the (NK, F) association table.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..ops import matching
 
 INVALID = -1
 
@@ -131,6 +133,45 @@ def _observed(kf: KFBlock) -> torch.Tensor:
     return kf.feat_valid & (kf.mp_idx >= 0) & kf.valid[:, None]
 
 
+def observation_membership(kf: KFBlock, nm: int) -> torch.Tensor:
+    """(NK, NM) bool: does KF k observe landmark m (via the mp_idx table)."""
+    nk = kf.mp_idx.shape[0]
+    safe_idx = torch.where(_observed(kf), kf.mp_idx.long(), nm)  # park in slot nm
+    memb = torch.zeros((nk, nm + 1), dtype=torch.bool, device=kf.mp_idx.device)
+    return memb.scatter(1, safe_idx, True)[:, :nm]
+
+
+def covisibility(kf: KFBlock, nm: int) -> torch.Tensor:
+    """(NK, NK) f32 covisibility weights = # shared landmarks (reference
+    KeyFrame::UpdateConnections), one matmul over the membership."""
+    memb = observation_membership(kf, nm).to(torch.float32)
+    W = memb @ memb.T
+    return W - torch.diag(torch.diagonal(W))
+
+
+def covisibility_row(kf: KFBlock, nm: int, slot: int) -> torch.Tensor:
+    """(NK,) f32 covisibility weights of one keyframe: for each keyframe,
+    its observations (features, so a landmark held twice counts twice) of
+    landmarks that ``slot`` observes; 0 at ``slot``."""
+    obs_ok = kf.feat_valid[slot] & (kf.mp_idx[slot] >= 0) & kf.valid[slot]
+    memb_row = torch.zeros((nm + 1,), dtype=torch.bool, device=kf.mp_idx.device)
+    memb_row = memb_row.index_fill(0, torch.where(obs_ok, kf.mp_idx[slot].long(), nm), True)
+    row = (_observed(kf) & memb_row[torch.clamp_min(kf.mp_idx, 0).long()]).sum(1)
+    row = row.to(torch.float32)
+    row[slot] = 0.0
+    return row
+
+
+def covisibility_rows(kf: KFBlock, nm: int, slots) -> torch.Tensor:
+    """(S, NK) f32 covisibility rows of a batch of keyframes, one membership
+    matmul; 0 at each row's own slot."""
+    slots = torch.as_tensor(slots, dtype=torch.int64, device=kf.mp_idx.device)
+    memb = observation_membership(kf, nm).to(torch.float32)
+    rows = memb[slots] @ memb.T
+    return rows.index_put((torch.arange(slots.shape[0], device=slots.device), slots),
+                          torch.zeros((), device=slots.device))
+
+
 def mp_observation_counts(kf: KFBlock, nm: int) -> torch.Tensor:
     """(NM,) i32 number of keyframes observing each landmark. A keyframe
     that holds one landmark at two features counts once: the (KF, landmark)
@@ -161,6 +202,133 @@ def gather_observations(kf: KFBlock):
         kf.octave.reshape(-1),
         ok.reshape(-1),
     )
+
+
+def update_mp_descriptors_and_normals(kf: KFBlock, mp: MPBlock, scale_factors,
+                                      max_obs: int = 16) -> MPBlock:
+    """Recompute distinctive descriptors, normals and scale ranges of all
+    landmarks from their observations (reference
+    MapPoint::ComputeDistinctiveDescriptors + UpdateNormalAndDepth),
+    batched over each landmark's first ``max_obs`` observations in
+    keyframe-major order.
+
+    The distinctive descriptor is the observation with the least mean
+    Hamming distance to the others, less a bonus of 16 for observations
+    from the newest observing keyframe (the first of equal scores wins).
+    """
+    nm = mp.Xw.shape[0]
+    nk, f = kf.mp_idx.shape
+    dev = kf.mp_idx.device
+    flat_lm = torch.where(_observed(kf), kf.mp_idx.long(), nm).reshape(-1)
+    # per-landmark observation lists: a stable sort keeps keyframe order
+    sorted_lm, order = torch.sort(flat_lm, stable=True)
+    rank = torch.arange(sorted_lm.shape[0], device=dev) - torch.searchsorted(
+        sorted_lm, sorted_lm, side="left")
+    slot_ok = (sorted_lm < nm) & (rank < max_obs)
+    obs_table = torch.full((nm + 1, max_obs), -1, dtype=torch.int64, device=dev)
+    obs_table = obs_table.index_put(
+        (torch.where(slot_ok, sorted_lm, nm), torch.where(slot_ok, rank, 0)),
+        torch.where(slot_ok, order, -1))[:nm]                          # (NM, max_obs)
+    has_obs = obs_table >= 0
+    obs_flat = torch.clamp_min(obs_table, 0)
+    flat_cam = torch.arange(nk, device=dev).repeat_interleave(f)
+    obs_cam = torch.where(has_obs, flat_cam[obs_flat], 0)
+    obs_desc = kf.desc.reshape(-1, 8)[obs_flat]                       # (NM, max_obs, 8)
+
+    dmat = matching.popcount_u32(obs_desc[:, :, None, :] ^ obs_desc[:, None, :, :]).sum(-1)
+    pair_ok = has_obs[:, :, None] & has_obs[:, None, :]
+    dsum = torch.where(pair_ok, dmat, 0).sum(-1)
+    cnt = torch.clamp_min(pair_ok.sum(-1), 1)
+    mean_d = torch.where(has_obs, dsum.to(torch.float32) / cnt.to(torch.float32),
+                         torch.full_like(dsum, float("inf"), dtype=torch.float32))
+    obs_kf_id = torch.where(has_obs, kf.kf_id[obs_cam], -1)
+    newest = torch.amax(obs_kf_id, dim=-1, keepdim=True)
+    recency_bonus = torch.where(obs_kf_id == newest, 16.0, 0.0)
+    best = torch.argmin(mean_d - recency_bonus, -1)
+    new_desc = torch.gather(obs_desc, 1, best[:, None, None].expand(nm, 1, 8))[:, 0]
+    any_obs = has_obs.any(-1)
+    desc = torch.where(any_obs[:, None], new_desc, mp.desc)
+
+    # normal: mean of the unit vectors from the observing camera centres;
+    # the scale range from the first observation's octave and distance
+    centers = -torch.einsum("kji,kj->ki", kf.Tcw[:, :3, :3], kf.Tcw[:, :3, 3])
+    v = mp.Xw[:, None, :] - centers[obs_cam]
+    vn = v / torch.clamp_min(torch.linalg.norm(v, dim=-1, keepdim=True), 1e-9)
+    mean_vn = (torch.where(has_obs[..., None], vn, 0.0).sum(1)
+               / torch.clamp_min(has_obs.sum(-1, keepdim=True), 1))
+    normal = torch.where(any_obs[:, None], mean_vn, mp.normal)
+    first_obs = obs_flat[:, 0]
+    first_cam = torch.where(any_obs, flat_cam[first_obs], 0)
+    first_oct = torch.where(any_obs, kf.octave.reshape(-1)[first_obs], 0)
+    dist_ref = torch.linalg.norm(mp.Xw - centers[first_cam], dim=-1)
+    sf = torch.as_tensor(scale_factors, dtype=torch.float32, device=dev)
+    n_levels = sf.shape[0]
+    max_d = dist_ref * sf[torch.clamp(first_oct, 0, n_levels - 1).long()]
+    min_d = max_d / sf[n_levels - 1]
+    return mp._replace(
+        desc=desc,
+        normal=normal,
+        max_dist=torch.where(any_obs, max_d * 1.2, mp.max_dist),
+        min_dist=torch.where(any_obs, min_d * 0.8, mp.min_dist),
+        ref_kf=torch.where(any_obs, first_cam.to(torch.int32), mp.ref_kf),
+    )
+
+
+def check_structure(m: "MapState", repair: bool = False):
+    """Map-invariant checker (reference Map::CheckStructure src/Map.cpp:5444,
+    DEBUGGING2): associations out of range or to dead landmarks,
+    self-parents, dead parents and predecessors, landmarks whose reference
+    keyframe died. Returns a list of violation strings; with ``repair=True``
+    the fixable ones are repaired in place, as the reference's auto-repair
+    does."""
+    problems = []
+    kf_valid = m.kf.valid.cpu().numpy()
+    mp_valid = m.mp.valid.cpu().numpy()
+    mp_idx = m.kf.mp_idx.cpu().numpy()
+    parent = m.kf.parent.cpu().numpy()
+    pred = m.kf.pred.cpu().numpy()
+    ref_kf = m.mp.ref_kf.cpu().numpy()
+
+    assoc = mp_idx[kf_valid]
+    bad_range = assoc >= m.nm
+    bad_dead = (assoc >= 0) & (assoc < m.nm) & ~mp_valid[np.clip(assoc, 0, m.nm - 1)]
+    if bad_range.any():
+        problems.append(f"{bad_range.sum()} associations out of range")
+    if bad_dead.any():
+        problems.append(f"{bad_dead.sum()} associations to dead landmarks")
+    live = np.flatnonzero(kf_valid)
+    for s in live[parent[live] == live]:
+        problems.append(f"KF slot {s} is its own parent")
+    pl_ = parent[live]
+    for s in live[(pl_ >= 0) & ~kf_valid[np.clip(pl_, 0, m.nk - 1)]]:
+        problems.append(f"KF slot {s} parent {parent[s]} is dead")
+    pr_ = pred[live]
+    for s in live[(pr_ >= 0) & ~kf_valid[np.clip(pr_, 0, m.nk - 1)]]:
+        problems.append(f"KF slot {s} pred {pred[s]} is dead")
+    mlive = np.flatnonzero(mp_valid)
+    rf = ref_kf[mlive]
+    for s in mlive[(rf >= 0) & ~kf_valid[np.clip(rf, 0, m.nk - 1)]]:
+        problems.append(f"MP slot {s} ref_kf {ref_kf[s]} is dead")
+
+    if repair and problems:
+        kf = m.kf
+        dead_kf = ~kf.valid
+
+        def drop_dead(link):
+            return torch.where(dead_kf[torch.clamp_min(link, 0).long()] & (link >= 0), -1, link)
+
+        dead_assoc = (kf.mp_idx >= 0) & ~m.mp.valid[torch.clamp_min(kf.mp_idx, 0).long()]
+        m.kf = kf._replace(mp_idx=torch.where(dead_assoc, -1, kf.mp_idx),
+                           parent=drop_dead(kf.parent), pred=drop_dead(kf.pred))
+        # re-anchor landmarks whose reference KF died: first live observer
+        memb = observation_membership(m.kf, m.nm).cpu().numpy()
+        new_ref = ref_kf.copy()
+        for s in np.flatnonzero(mp_valid):
+            if new_ref[s] >= 0 and not kf_valid[new_ref[s]]:
+                obs = np.flatnonzero(memb[:, s])
+                new_ref[s] = obs[0] if len(obs) else -1
+        m.mp = m.mp._replace(ref_kf=torch.from_numpy(new_ref).to(m.mp.ref_kf.device))
+    return problems
 
 
 # ---------------------------------------------------------------------------

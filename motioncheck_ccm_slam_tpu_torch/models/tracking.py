@@ -8,8 +8,11 @@ radius at the refined pose, pose-optimize again. Everything in
 ``_track_two_pass`` stays on the device; ``Tracker`` reads back only the
 inlier count and the pose for its log.
 
-Monocular initialization and relocalization need ``ops/ransac.py``, which
-is not ported yet.
+Monocular initialization (two-view RANSAC) and relocalization (a mutual
+match against the whole clipped map, PnP RANSAC, then the two-pass step)
+draw their hypotheses from the tracker's seeded ``torch.Generator``; the
+host reads each stage's decision (match counts, ``success``), as the JAX
+package does.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ from typing import Optional
 import torch
 
 from ..config import Config
-from ..ops import geometry, lie, matching, orb
+from ..ops import geometry, lie, matching, orb, ransac
 from ..solvers import pose_opt
 from . import frame as frame_mod
 
@@ -144,9 +147,23 @@ class Tracker:
     last_kf_tracked: int = 0                      # inliers of last KF creation
     max_tracked_since_kf: int = 0                 # running max since last KF
     n_frames: int = 0
+    n_relocs: int = 0
     # trajectory log: (timestamp, Tcw (4,4) np) per frame for CSV export
     trajectory: list = dataclasses.field(default_factory=list)
     trajectory_ok: list = dataclasses.field(default_factory=list)
+    # RANSAC hypotheses (two-view init, relocalization's PnP) are drawn
+    # from this generator on ``device``; made at first use, seeded 0,
+    # unless given
+    generator: Optional[torch.Generator] = None
+    # the bootstrap's result for the client system (set by a successful
+    # two-view initialization, consumed by ClientSystem)
+    init_result: Optional[dict] = None
+
+    def _rng(self) -> torch.Generator:
+        if self.generator is None:
+            self.generator = torch.Generator(device=self.device)
+            self.generator.manual_seed(0)
+        return self.generator
 
     def _camera_arrays(self):
         cam, ex = self.config.camera, self.config.extractor
@@ -175,8 +192,34 @@ class Tracker:
         return fr
 
     def _try_initialize(self, fr: frame_mod.Frame):
-        raise NotImplementedError(
-            "two-view initialization needs ops/ransac.py: ROADMAP queue 1 item 9")
+        """Two-view bootstrap (reference MonocularInitialization :291)."""
+        ref = self.init_ref_frame
+        m = matching.search_for_initialization(
+            ref.feats.desc, ref.feats.xy, ref.feats.valid,
+            fr.feats.desc, fr.feats.xy, fr.feats.valid,
+            window=100.0, angle1=ref.feats.angle, angle2=fr.feats.angle,
+        )
+        if int(torch.sum(m.ok)) < 100:
+            # not enough matches: re-seat the reference frame
+            self.init_ref_frame = fr
+            return
+        K, _, _ = self._camera_arrays()
+        res = ransac.initialize_two_view(self._rng(), ref.feats.xy, fr.feats.xy[m.idx],
+                                         m.ok, K)
+        if not bool(res.success):
+            return
+        # hand the triangulated structure to the client system / mapper
+        fr.Tcw = res.Tcw2
+        self.init_result = {
+            "ref_frame": ref,
+            "cur_frame": fr,
+            "match_idx": m.idx,
+            "good": res.good,
+            "pts3d": res.pts3d,
+        }
+        self.state = TrackState.OK
+        self.velocity = None
+        self.frames_since_kf = 0
 
     def _track(self, fr: frame_mod.Frame):
         cfg = self.config
@@ -215,8 +258,45 @@ class Tracker:
         self.max_tracked_since_kf = max(self.max_tracked_since_kf, n_inliers)
 
     def _relocalize(self, fr: frame_mod.Frame) -> bool:
-        raise NotImplementedError(
-            "relocalization needs ops/ransac.py: ROADMAP queue 1 item 9")
+        """Recover the pose against the clipped local map after a loss.
+
+        The reference fork resets on loss (src/Tracking.cpp:249-259); base
+        ORB-SLAM2's Relocalization() retrieves BoW candidates and runs EPnP
+        RANSAC per KF. The clipped client map (<= a few thousand landmarks)
+        fits one brute-force mutual match and one batched PnP RANSAC, then
+        the regular two-pass step densifies and polishes the pose.
+        """
+        cfg = self.config
+        K, sf, inv_s2 = self._camera_arrays()
+        mp = self.map.mp
+        m = matching.mutual_match(mp.desc, mp.valid, fr.feats.desc, fr.feats.valid,
+                                  max_dist=matching.TH_LOW, nn_ratio=0.85)
+        if int(torch.sum(m.ok)) < 10:
+            return False
+        res = ransac.pnp_ransac(self._rng(), mp.Xw, fr.feats.xy[m.idx], m.ok, K,
+                                min_inliers=cfg.tracking.reloc_min_inliers)
+        if not bool(res.success):
+            return False
+        Tcw, assoc, n_inl, _, _ = _track_two_pass(
+            fr.feats.xy, fr.feats.desc, fr.feats.octave, fr.feats.angle,
+            fr.feats.valid,
+            res.Tcw, res.Tcw,
+            mp.Xw, mp.desc, mp.normal, mp.min_dist, mp.max_dist, mp.valid,
+            K, cfg.camera.width, cfg.camera.height, sf, inv_s2,
+            cfg.extractor.n_levels,
+        )
+        n_inliers = int(n_inl)
+        if n_inliers < cfg.tracking.matches_inliers_thres:
+            return False
+        fr.Tcw = Tcw
+        fr.mp_idx = assoc
+        fr.n_tracked = n_inliers
+        self.state = TrackState.OK
+        self.velocity = None
+        self.frames_since_kf = 0
+        self.max_tracked_since_kf = n_inliers
+        self.n_relocs += 1
+        return True
 
     def need_new_keyframe(self, fr: frame_mod.Frame) -> bool:
         """KF decision (reference NeedNewKeyFrame :730, simplified to its
@@ -243,4 +323,5 @@ class Tracker:
         self.velocity = None
         self.last_frame = None
         self.init_ref_frame = None
+        self.init_result = None
         self.frames_since_kf = 0

@@ -18,6 +18,7 @@ from motioncheck_ccm_slam_tpu_torch import config as tconfig
 from motioncheck_ccm_slam_tpu_torch import entry as tentry
 from motioncheck_ccm_slam_tpu_torch.models import map_state as tmap
 from motioncheck_ccm_slam_tpu_torch.models import tracking as ttrack
+from motioncheck_ccm_slam_tpu_torch.system import client as tclient
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -47,7 +48,8 @@ def test_port_imports_no_jax_and_no_triton():
             "ops.matching", "solvers.ba_core", "solvers.pose_opt",
             "solvers.local_ba", "models.map_state", "models.frame",
             "models.tracking", "models.motion_check", "models.gba",
-            "parallel.sharded_ba")
+            "parallel.sharded_ba", "ops.ransac", "models.mapping", "system.client",
+            "utils.watchdog", "utils.csv_io")
     }
     assert expected <= set(out["modules"]), expected - set(out["modules"])
     assert out["jax"] == []
@@ -74,7 +76,8 @@ def test_entry_points_default_to_the_card():
     """The port runs on the card unless the caller asks for the CPU."""
     for fn in (tentry.entry, tentry.gba_entry, tentry.matrix_free_gba_entry,
                tentry.server_gba_entry, tentry.gba_problem, tentry.server_map,
-               tmap.empty_mp_block, tmap.empty_kf_block, tmap.MapState.create):
+               tmap.empty_mp_block, tmap.empty_kf_block, tmap.MapState.create,
+               tclient.ClientSystem):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
     t = ttrack.Tracker(config=tconfig.DEFAULT_CONFIG, map=None)
     assert t.device == torch.device("cuda")

@@ -34,7 +34,7 @@ def test_popcount_and_hamming_exact():
     rng = np.random.default_rng(0)
     x = np.array([0, 1, 3, 0xFFFFFFFF, 0x80000000, 0x7FFFFFFF], np.uint32)
     np.testing.assert_array_equal(
-        tm.popcount(convert.desc_from_numpy(x[None], "cpu"))[0].numpy(),
+        tm.popcount_u32(convert.desc_from_numpy(x[None], "cpu"))[0].numpy(),
         np.asarray(jm.popcount_u32(jnp.asarray(x))))
     d1, d2 = _desc(rng, 300), _desc(rng, 200)
     d2[:50] = _flip(rng, d1[:50], 7)

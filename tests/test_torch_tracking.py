@@ -29,6 +29,7 @@ from motioncheck_ccm_slam_tpu_torch.models import frame as tframe
 from motioncheck_ccm_slam_tpu_torch.models import tracking as ttrack
 
 from synth_scene import SynthScene
+from test_torch_client import torch_on_one_thread  # noqa: F401 (an autouse fixture)
 
 CFG = _small_preset(DEFAULT_CONFIG)
 
@@ -160,15 +161,24 @@ def test_tracker_process_ok_state(scene_step):
 
 
 def test_tracker_unported_states_raise():
-    tracker = ttrack.Tracker(config=CFG, map=None, device=torch.device("cpu"))
+    """The states that raised before two-view initialization and
+    relocalization were ported (the name is kept) now run: on blank frames
+    initialization finds too few matches and re-seats its reference frame,
+    and relocalization against an empty map fails and stays LOST."""
+    mp = convert.mp_block_from_numpy(jax.tree.map(np.array, jmap.empty_mp_block(64)), "cpu")
+    tracker = ttrack.Tracker(config=CFG, map=types.SimpleNamespace(mp=mp),
+                             device=torch.device("cpu"))
     img = np.zeros((CFG.camera.height, CFG.camera.width), np.float32)
     tracker.process(img, 0.0)
     assert tracker.state == ttrack.TrackState.NOT_INITIALIZED
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        tracker.process(img, 0.05)
+    first_ref = tracker.init_ref_frame
+    fr = tracker.process(img, 0.05)
+    assert tracker.state == ttrack.TrackState.NOT_INITIALIZED
+    assert tracker.init_ref_frame is fr and fr is not first_ref
+    assert tracker.init_result is None
     tracker.state = ttrack.TrackState.LOST
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-        tracker.process(img, 0.1)
+    tracker.process(img, 0.1)
+    assert tracker.state == ttrack.TrackState.LOST and tracker.n_relocs == 0
 
 
 def test_convert_roundtrips_state():
