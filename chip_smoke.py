@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's two main paths through their entry points, in phases.
+Drives the port's main paths through their entry points, in phases.
 The client tracking step at the EuRoC operating point (752x480, 8 pyramid
 levels, 1024 feature slots, an 8192-landmark map):
 
@@ -92,9 +92,33 @@ operating point: 752x480, 8 levels, 1024 feature slots, a client map of
     BA), the initialization frame's ms with its batched SVDs' share, and
     the relocalization frame's ms (not gated).
 
-Prints a JSON line of step results, one of GBA results, one each of the
-matrix-free GBA's, the driver's and the agent's results, one of kernel
-results, the card's name and power limit and, last, the contract line
+The server (system/server.ServerSystem, per-agent maps of 2048 keyframes
+x 65,536 landmarks) with two agents (ClientSystem + parallel/comm.
+ClientComm on the server's channels, in process):
+
+15. both agents on phase 14's relief wall, agent 1 0.3 m to the side,
+    DEFAULT_CONFIG but map matching from keyframe 2 (not 30), a server spin
+    after each pair of frames until 5 frames after the merge (at most 100),
+    then three flush ticks and the final GBA with the agents idle. Gates:
+    both agents OK; one merge; both handlers on one map holding client ids
+    {0, 1}; _pick_solver at this capacity is the tile GBA and the merge GBA
+    launched K3-K7; check_structure clean; each agent's keyframes and both
+    together within 0.10 m Sim3-aligned ATE; the final GBA once; K1 and K2
+    once a frame of each agent. Prints the frame medians, spin_once's
+    median, maximum and host synchronisations, the merge's seconds by part
+    and the final GBA's seconds and Motion Check verdict.
+16. tests/test_loop_closing's drifted revisit (an arc of 6 poses passed
+    twice, the second drifted by se3_exp(0, 0.026, 0, 0.15, 0.05, 0)),
+    built with numpy in a server-capacity map; a LoopCloser with its GBA
+    over both passes. Gates: a loop closed, its edges at both ends, the
+    loop GBA on the tile GBA with K3-K7 launched, the revisit's centre
+    errors below 0.08 m (least) and 0.16 m (mean). Prints the seconds of
+    detection, compute_sim3, correct_loop, the essential graph and the GBA.
+
+Each phase prints its own seconds. Prints a JSON line of step results,
+one of GBA results, one each of the matrix-free GBA's, the driver's, the
+agent's, the merge's and the loop's results, one of each phase's seconds,
+one of kernel results, the card's name and power limit and, last, the contract line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
 without a GPU it exits non-zero before printing any result.
 
@@ -185,6 +209,14 @@ AGENT_MIN_MPS, AGENT_MAX_ATE_M = 300, 0.10
 # phase 14's wall relief (+-0.4 m at 4 m, a 4 m pitch): the DLT-PnP of
 # relocalization finds no pose on a flat wall
 AGENT_RELIEF_M, RELIEF_PITCH = 0.4, 4.0
+# phase 15, two agents merge: agent 1 on phase 14's wall 0.3 m to the side;
+# map matching from keyframe 2 (tests/test_multi_agent.py's value; the
+# default 30 would put the merge ~200 frames in); 5 frames after the merge,
+# at most 100 frames an agent; the fused ATE bound
+MERGE_OFFSET_Y, MERGE_START_AFTER_KF, MERGE_AFTER, MERGE_MAX_FRAMES = 0.3, 2, 5, 100
+MERGE_MAX_ATE_M = 0.10
+# phase 16, loop closing: tests/test_loop_closing.test_drift_removed's limits
+LOOP_MIN_ERR_M, LOOP_MEAN_ERR_M = 0.08, 0.16
 
 
 # The camera-table kernels' edge shapes (K3, K4, K5, K7): (name, C, L,
@@ -217,13 +249,15 @@ class PlaneScene:
     not flat: its depth varies by +-relief metres (a product of sines of
     RELIEF_PITCH metres along x and y). Relocalization needs that: its
     DLT-PnP (ops/ransac.pnp_ransac, as the JAX package's) is degenerate on
-    coplanar landmarks.
+    coplanar landmarks. ``offset_y`` moves the whole path sideways (a
+    second agent's view of the same wall).
     """
 
     def __init__(self, cam, seed: int = 0, depth: float = 4.0, step: float = 0.045,
-                 relief: float = 0.0):
+                 relief: float = 0.0, offset_y: float = 0.0):
         rng = np.random.default_rng(seed)
         self.cam, self.depth, self.step, self.relief = cam, depth, step, relief
+        self.offset_y = offset_y
         h, w = cam.height, cam.width
         yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
         xd, yd = (xx - cam.cx) / cam.fx, (yy - cam.cy) / cam.fy
@@ -247,7 +281,7 @@ class PlaneScene:
                             rng.uniform(150, 250, (gy, gx)))
 
     def center(self, k: int) -> np.ndarray:
-        return np.array([self.step * k, 0.01 * np.sin(0.3 * k), 0.0])
+        return np.array([self.step * k, self.offset_y + 0.01 * np.sin(0.3 * k), 0.0])
 
     def pose(self, k: int) -> np.ndarray:
         T = np.eye(4, dtype=np.float32)
@@ -685,6 +719,7 @@ def gba_phases(device, smi: str, schur_log: str) -> dict:
     from motioncheck_ccm_slam_tpu_torch.parallel import sharded_ba as sba
     from motioncheck_ccm_slam_tpu_torch.solvers import ba_core
 
+    CLOCK.start(7)
     # phase 7: the build report of csrc/schur.cu
     print(f"phase 7 build: {schur_cuda.library_path()}")
     for line in schur_log.splitlines():
@@ -706,6 +741,7 @@ def gba_phases(device, smi: str, schur_log: str) -> dict:
     check((tp.TP, tp.ntl, OP, tp.L_pad) == (4224, 512, 2162688, 65536),
           "the tile plan differs from bench_gba's (TP 4224, 512 tiles)")
 
+    CLOCK.start(8)
     # phase 8: K3-K7 against their plain versions at these shapes
     Tcw_p, Xw_p = perturbed_state(Tcw, Xw)
     fl_pad = torch.cat([fixed_lm, torch.ones(tp.L_pad - L, dtype=torch.bool, device=device)])
@@ -756,6 +792,7 @@ def gba_phases(device, smi: str, schur_log: str) -> dict:
     del k6_twice
     n_w = int((W18 != 0).any(0).sum())
 
+    CLOCK.start(9)
     # phase 9: 10 LM iterations from the perturbed start, kernels then plain
     def robust_cost(T, X):
         Xpad = torch.cat([X, torch.zeros((tp.L_pad - L, 3), device=device)])
@@ -809,6 +846,7 @@ def gba_phases(device, smi: str, schur_log: str) -> dict:
         check(launches[n] == k, f"{n} launched {launches[n]} times, expected {k}")
     check(launches["s_apply"] >= GBA_ITERS, f"s_apply launched {launches['s_apply']} times")
 
+    CLOCK.start(10)
     # phase 10: LM iterations/s on bench_gba's exact problem
     args = (Tcw, Xw, obs, K, fixed_cam, fixed_lm)
     float(fn(*args, n_iterations=1).cost)
@@ -935,6 +973,7 @@ def mf_phases(device, smi: str, ctx: dict) -> dict:
     from motioncheck_ccm_slam_tpu_torch.ops import schur_cuda
     from motioncheck_ccm_slam_tpu_torch.parallel import sharded_ba as sba
 
+    CLOCK.start(11)
     fn, (Tcw, Xw, obs, K, fixed_cam, fixed_lm) = matrix_free_gba_entry(device)
     C, L = Tcw.shape[0], Xw.shape[0]
     tp, st, TP = ctx["tp"], ctx["st"], ctx["tp"].TP
@@ -990,6 +1029,7 @@ def mf_phases(device, smi: str, ctx: dict) -> dict:
     print(f"phase 11 K8 d0_cost: {c8:.9g} (two calls bitwise equal) vs plain {c8_ref:.9g} "
           f"and K3's sum {c3:.9g}")
 
+    CLOCK.start(12)
     # phase 12: 10 LM iterations from the perturbed start, priced by K8
     fn(Tcw_p, Xw_p, obs, K, fixed_cam, fixed_lm, n_iterations=0)   # builds fn's plan
     torch.cuda.synchronize()
@@ -1414,8 +1454,456 @@ def agent_phase(device, smi: str) -> dict:
     return out
 
 
+def arc_poses(n: int, step: float = 0.25):
+    """tests/synth_map.arc_poses with the port's se3_exp: n translating
+    poses with a slow yaw, 0.25 s apart."""
+    from motioncheck_ccm_slam_tpu_torch.ops import lie
+
+    xi = torch.tensor([[0.0, 0.002 * k, 0.0, step * k, 0.0, 0.0] for k in range(n)])
+    return list(lie.se3_exp(xi).numpy()), [k * 0.25 for k in range(n)]
+
+
+class RevisitWorld:
+    """tests/synth_map.SynthWorld in numpy: landmarks in a box 5-7 m ahead
+    with random descriptors, observed by projection with K (the keypoints
+    are undistorted) with 0.3 px noise."""
+
+    def __init__(self, cfg, n_points: int = 400, seed: int = 0, depth: float = 6.0):
+        rng = np.random.default_rng(seed)
+        self.cfg = cfg
+        self.pts = np.stack([rng.uniform(-6, 6, n_points), rng.uniform(-3.5, 3.5, n_points),
+                             depth + rng.uniform(-1.0, 1.0, n_points)], -1).astype(np.float32)
+        self.desc = rng.integers(0, 2**32, (n_points, 8), dtype=np.uint32)
+        self.K = cfg.camera.K()
+
+    def observe(self, Tcw, rng, noise_px: float = 0.3):
+        cam, K = self.cfg.camera, self.K
+        pc = self.pts @ Tcw[:3, :3].T + Tcw[:3, 3]
+        z = pc[:, 2]
+        u = K[0, 0] * pc[:, 0] / np.maximum(z, 1e-6) + K[0, 2]
+        v = K[1, 1] * pc[:, 1] / np.maximum(z, 1e-6) + K[1, 2]
+        vis = (z > 0.2) & (u >= 10) & (u < cam.width - 10) & (v >= 10) & (v < cam.height - 10)
+        idx = np.flatnonzero(vis)[:self.cfg.extractor.max_features]
+        uv = np.stack([u[idx], v[idx]], -1) + rng.normal(0, noise_px, (len(idx), 2))
+        return idx, uv.astype(np.float32)
+
+
+def drifted_revisit(cfg, device, server: bool = True):
+    """tests/test_loop_closing.drifted_revisit built with numpy into an
+    empty port MapState (server capacity by default): an arc of 6 poses
+    passed twice, each pass observing its own copies of the world's
+    landmarks (tests/synth_map.add_pass, slots allocated in the same
+    order), the second pass's poses and landmarks carrying the rigid drift
+    D = se3_exp(0, 0.026, 0, 0.15, 0.05, 0). Returns (map, pass-1 slots,
+    pass-2 slots, true poses)."""
+    from motioncheck_ccm_slam_tpu_torch import convert
+    from motioncheck_ccm_slam_tpu_torch.models.map_state import MapState
+    from motioncheck_ccm_slam_tpu_torch.ops import lie
+
+    m = MapState.create(cfg, server=server, device="cpu")
+    kf = convert.kf_block_to_numpy(m.kf)._asdict()
+    mp = convert.mp_block_to_numpy(m.mp)._asdict()
+    world = RevisitWorld(cfg)
+    poses, ts = arc_poses(6)
+    D = lie.se3_exp(torch.tensor([0.0, 0.026, 0.0, 0.15, 0.05, 0.0])).numpy()
+    F = cfg.extractor.max_features
+    next_mp, next_kf = 0, 0
+    passes = []
+    for kf_id_start, drift, seed, t0 in ((0, None, 1, 0.0), (50, D, 2, 10.0)):
+        rng = np.random.default_rng(seed)
+        slot_of, kf_slots = {}, []
+        for k, Tcw in enumerate(poses):
+            idx, uv = world.observe(Tcw, rng)
+            n = min(len(idx), F)
+            new = [int(w) for w in idx[:n] if int(w) not in slot_of]
+            if new:
+                s = np.arange(next_mp, next_mp + len(new))
+                next_mp += len(new)
+                X = world.pts[new]
+                if drift is not None:
+                    X = X @ drift[:3, :3].T + drift[:3, 3]
+                mp["mp_id"][s] = [kf_id_start * 100000 + w for w in new]
+                mp["client_id"][s] = 0
+                mp["Xw"][s] = X
+                mp["desc"][s] = world.desc[new]
+                mp["min_dist"][s], mp["max_dist"][s] = 0.1, 100.0
+                mp["valid"][s] = True
+                mp["first_kf_id"][s] = kf_id_start + k
+                mp["ref_kf"][s] = next_kf       # the first observing KF's slot
+                slot_of.update(zip(new, s.tolist()))
+            slot = next_kf
+            next_kf += 1
+            T_eff = Tcw if drift is None else Tcw @ np.linalg.inv(drift)
+            link = kf_slots[-1] if kf_slots else -1
+            kf["kf_id"][slot], kf["client_id"][slot] = kf_id_start + k, 0
+            kf["timestamp"][slot] = t0 + ts[k]
+            kf["Tcw"][slot] = T_eff.astype(np.float32)
+            kf["xy"][slot, :n] = uv[:n]
+            kf["desc"][slot, :n] = world.desc[idx[:n]]
+            kf["feat_valid"][slot, :n] = True
+            kf["mp_idx"][slot, :n] = [slot_of[int(w)] for w in idx[:n]]
+            kf["valid"][slot] = True
+            kf["parent"][slot] = kf["pred"][slot] = link
+            kf_slots.append(slot)
+        passes.append(kf_slots)
+    m = MapState(kf=convert.kf_block_from_numpy(types.SimpleNamespace(**kf), device),
+                 mp=convert.mp_block_from_numpy(types.SimpleNamespace(**mp), device),
+                 config=cfg, next_kf_slot=next_kf % m.nk)
+    m.sync_host_index()
+    return m, passes[0], passes[1], poses
+
+
+@contextlib.contextmanager
+def recorded_gbas():
+    """Wrap models.gba.run_gba for the block: each call's seconds, its
+    solver / host plan / Motion Check parts (``timed_driver``), its K3-K7
+    launches and its result, in call order."""
+    from motioncheck_ccm_slam_tpu_torch.models import gba as gba_mod
+
+    calls = []
+    run_gba = gba_mod.run_gba
+
+    def recording(*a, **kw):
+        zero_launches(GBA_KERNELS)
+        with timed_driver() as secs:
+            t0 = time.perf_counter()
+            res = run_gba(*a, **kw)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+        calls.append(dict(seconds=total, solver_s=secs["solver"], plan_s=secs["plan"],
+                          mc_s=secs["mc"], launches=read_launches(GBA_KERNELS),
+                          mc_mode=kw.get("mc_mode", "full"), reverted=res.reverted,
+                          n_deleted_kfs=res.n_deleted_kfs, mc_longest_run=res.mc_longest_run,
+                          mc_gated=res.mc_gated, interrupted=res.interrupted, cost=res.cost))
+        return res
+
+    gba_mod.run_gba = recording
+    try:
+        yield calls
+    finally:
+        gba_mod.run_gba = run_gba
+
+
+@contextlib.contextmanager
+def timed_calls(targets):
+    """Time ``(owner, attribute, label)`` callables for the block, each
+    call ending in a device synchronize; yields label -> list of seconds."""
+    secs = {label: [] for _, _, label in targets}
+    saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in targets]
+
+    def timed(f, label):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = f(*a, **kw)
+            torch.cuda.synchronize()
+            secs[label].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    for (owner, attr, f), (_, _, label) in zip(saved, targets):
+        setattr(owner, attr, timed(f, label))
+    try:
+        yield secs
+    finally:
+        for owner, attr, f in saved:
+            setattr(owner, attr, f)
+
+
+def count_syncs(fn):
+    """fn() with torch's synchronizing-operation warnings on: returns
+    (fn's result, the number of host synchronizations it made)."""
+    import warnings
+
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def kf_centres(m, cid: int):
+    """(timestamps, camera centres) of client ``cid``'s keyframes in map m."""
+    valid = (m.kf.valid & (m.kf.client_id == cid)).cpu().numpy()
+    T = m.kf.Tcw.cpu().numpy()[valid].astype(np.float64)
+    return m.kf.timestamp.cpu().numpy()[valid], -np.einsum("kji,kj->ki", T[:, :3, :3],
+                                                           T[:, :3, 3])
+
+
+def merge_phase(device, smi: str) -> dict:
+    """Phase 15: two agents stream their keyframes to the server, which
+    merges their maps at server capacity. Returns its results."""
+    import dataclasses
+
+    from motioncheck_ccm_slam_tpu_torch.config import DEFAULT_CONFIG, SystemParams
+    from motioncheck_ccm_slam_tpu_torch.models import gba as gba_mod
+    from motioncheck_ccm_slam_tpu_torch.models import map_merging, mapping as mapping_mod
+    from motioncheck_ccm_slam_tpu_torch.models.map_state import check_structure
+    from motioncheck_ccm_slam_tpu_torch.models.tracking import TrackState
+    from motioncheck_ccm_slam_tpu_torch.ops import fast_cuda
+    from motioncheck_ccm_slam_tpu_torch.parallel.comm import ClientComm
+    from motioncheck_ccm_slam_tpu_torch.system.client import ClientSystem
+    from motioncheck_ccm_slam_tpu_torch.system.server import ServerSystem
+    from motioncheck_ccm_slam_tpu_torch.utils.csv_io import ate_rmse
+
+    base = DEFAULT_CONFIG
+    cfg = base.replace(placerec=dataclasses.replace(
+        base.placerec, start_map_matching_after_kf=MERGE_START_AFTER_KF))
+    cap = cfg.capacity
+    print(f"phase 15 two agents: {cfg.camera.width}x{cfg.camera.height}, "
+          f"{cfg.extractor.n_levels} levels, {cfg.extractor.max_features} feature slots, client "
+          f"maps {cap.client_max_kfs} x {cap.client_max_mps}, server maps {cap.server_max_kfs} "
+          f"x {cap.server_max_mps}; the one cut from DEFAULT_CONFIG: "
+          f"placerec.start_map_matching_after_kf {base.placerec.start_map_matching_after_kf} -> "
+          f"{MERGE_START_AFTER_KF}; agent 1 offset {MERGE_OFFSET_Y} m sideways")
+    scenes = [PlaneScene(cfg.camera, relief=AGENT_RELIEF_M),
+              PlaneScene(cfg.camera, relief=AGENT_RELIEF_M, offset_y=MERGE_OFFSET_Y)]
+    server = ServerSystem(cfg, n_agents=2, device=device)
+    clients = []
+    for cid in range(2):
+        c_cfg = cfg.replace(sys=SystemParams(client_id=cid, n_agents=2))
+        c = ClientSystem(c_cfg, device=device)
+        c.comm = ClientComm(config=c_cfg, channel=server.channel_for(cid), client_id=cid)
+        clients.append(c)
+    chosen = gba_mod._pick_solver(server.handlers[0].map.nk, server.handlers[0].map.nm)
+    check(chosen is not None and chosen.__qualname__.startswith("make_tile_gba"),
+          f"_pick_solver chose {chosen} at server capacity, not the tile-stream GBA")
+    torch.cuda.synchronize()
+    for f in (fast_cuda.masked_corner_score_levels, fast_cuda.blur_and_moments_levels):
+        f.launches = 0
+    merge_parts = [(server.matcher, "check", "matcher_check"),
+                   (server.matcher, "_compute_cross_sim3", "cross_sim3"),
+                   (map_merging, "sim3_transform_map", "sim3_transform_map"),
+                   (map_merging, "merge_maps", "merge_maps"),
+                   (map_merging, "optimize_seam_essential_graph", "seam_essential_graph"),
+                   (server, "_merge", "merge")]
+    frame_ms = [[], []]
+    spin_s, syncs, merged_at = [], [], None
+    with recorded_gbas() as gbas, timed_calls(merge_parts) as parts:
+        seam_fuse = []
+        fuse = mapping_mod.fuse_neighbors
+
+        def fuse_timed(*a, **kw):
+            t0 = time.perf_counter()
+            out = fuse(*a, **kw)
+            torch.cuda.synchronize()
+            if in_merge[0]:
+                seam_fuse.append(time.perf_counter() - t0)
+            return out
+
+        in_merge = [False]
+        merge_fn = server._merge
+
+        def merge_marked(hit):
+            in_merge[0] = True
+            try:
+                return merge_fn(hit)
+            finally:
+                in_merge[0] = False
+
+        server._merge = merge_marked
+        mapping_mod.fuse_neighbors = fuse_timed
+        try:
+            k = 0
+            while merged_at is None or k < merged_at + MERGE_AFTER:
+                check(k < MERGE_MAX_FRAMES, f"no merge in {MERGE_MAX_FRAMES} frames an agent")
+                for cid, c in enumerate(clients):
+                    img = scenes[cid].render(k)              # on the host, not timed
+                    t0 = time.perf_counter()
+                    c.process_image(img, k / cfg.camera.fps)
+                    torch.cuda.synchronize()
+                    frame_ms[cid].append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                _, n_sync = count_syncs(server.spin_once)
+                torch.cuda.synchronize()
+                spin_s.append(time.perf_counter() - t0)
+                syncs.append(n_sync)
+                if merged_at is None and server.n_merges:
+                    merged_at = k
+                k += 1
+            n_frames = k
+            launches = {"masked_corner_score": fast_cuda.masked_corner_score_levels.launches,
+                        "blur_and_moments": fast_cuda.blur_and_moments_levels.launches}
+            # the flush ticks, then the agents go idle (tests/test_multi_agent.py)
+            for _ in range(3):
+                for c in clients:
+                    c.comm.tick(c.map)
+                server.spin_once()
+            merge_gbas = list(gbas)
+            for h in server.handlers.values():
+                h.comm.idle_cycles = 10**9
+                h.comm.got_data = False
+            t0 = time.perf_counter()
+            fired = server.maybe_final_gba()
+            torch.cuda.synchronize()
+            final_s = time.perf_counter() - t0
+            again = server.maybe_final_gba()
+        finally:
+            mapping_mod.fuse_neighbors = fuse
+            del server._merge
+    final_gbas = gbas[len(merge_gbas):]
+
+    for cid, c in enumerate(clients):
+        check(c.tracker.state == TrackState.OK, f"agent {cid} ends in {c.tracker.state.name}")
+    check(server.n_merges == 1, f"{server.n_merges} merges")
+    m = server.handlers[0].map
+    check(server.handlers[1].map is m and server.matcher.maps[0] is server.matcher.maps[1] is m,
+          "the handlers do not point at one fused map")
+    cids = {cid for (_, cid) in m.kf_slot_by_id}
+    check(cids == {0, 1}, f"the fused map holds client ids {cids}")
+    check(len(merge_gbas) >= 1, "the merge ran no GBA")
+    merge_gba = merge_gbas[-1]
+    check(all(merge_gba["launches"][n] >= 1 for n in GBA_KERNELS),
+          f"the merge GBA's launches {merge_gba['launches']}")
+    problems = check_structure(m)
+    check(not problems, f"check_structure on the fused map: {problems}")
+    check(fired and not again, f"the final GBA fired {fired}, then {again}")
+    check(len(final_gbas) == 1, f"{len(final_gbas)} final GBAs")
+    for name, n in launches.items():
+        check(n == 2 * n_frames, f"{name} launched {n} times in {n_frames} frames of 2 agents")
+    # ATE of each agent's keyframes, and of both under one Sim3
+    est, gt = [], []
+    for cid in (0, 1):
+        ts, C = kf_centres(m, cid)
+        est.append(C)
+        gt.append(np.stack([scenes[cid].center(int(round(t * cfg.camera.fps))) for t in ts]))
+    ate = [ate_rmse(e, g)[0] for e, g in zip(est, gt)]
+    ate_joint = ate_rmse(np.concatenate(est), np.concatenate(gt))[0]
+    for cid in (0, 1):
+        check(ate[cid] <= MERGE_MAX_ATE_M, f"agent {cid}'s fused ATE {ate[cid]:.4f} m")
+    check(ate_joint <= MERGE_MAX_ATE_M, f"the joint ATE {ate_joint:.4f} m: not one frame")
+
+    merge_s = {label: sum(v) for label, v in parts.items()}
+    out = {
+        "card": smi, "frames_per_agent": n_frames, "merged_at_frame": merged_at,
+        "n_merges": server.n_merges, "kfs": len(m.kf_slot_by_id), "landmarks": m.n_mps,
+        "ate_m": ate, "ate_joint_m": ate_joint, "launches": launches,
+        "frame_ms_median": [statistics.median(v) for v in frame_ms],
+        "spin_s_median": statistics.median(spin_s), "spin_s_max": max(spin_s),
+        "spin_host_syncs_median": statistics.median(syncs), "spin_host_syncs_total": sum(syncs),
+        "merge_s": merge_s["merge"], "matcher_check_s": merge_s["matcher_check"],
+        "cross_sim3_s": merge_s["cross_sim3"],
+        "sim3_transform_s": merge_s["sim3_transform_map"], "merge_maps_s": merge_s["merge_maps"],
+        "seam_fuse_s": sum(seam_fuse), "seam_essential_graph_s": merge_s["seam_essential_graph"],
+        "merge_gba": merge_gba, "final_gba": final_gbas[0], "final_gba_s": final_s,
+    }
+    g, fg = merge_gba, final_gbas[0]
+    print(f"phase 15 merged at frame {merged_at} of {n_frames} an agent: {out['kfs']} KFs, "
+          f"{m.n_mps} landmarks in the fused map, client ids {sorted(cids)}; ATE agent 0 "
+          f"{ate[0]:.4f} m, agent 1 {ate[1]:.4f} m, both under one Sim3 {ate_joint:.4f} m; "
+          f"launches {launches}")
+    print(f"phase 15 times on {smi}: frame median agent 0 {out['frame_ms_median'][0]:.1f} ms, "
+          f"agent 1 {out['frame_ms_median'][1]:.1f} ms; spin_once median "
+          f"{out['spin_s_median']:.3f} s, max {out['spin_s_max']:.3f} s; host syncs a spin "
+          f"median {out['spin_host_syncs_median']}, total {out['spin_host_syncs_total']}")
+    print(f"phase 15 merge on {smi}: {out['merge_s']:.3f} s (matcher checks in all spins "
+          f"{out['matcher_check_s']:.3f} s, of which cross Sim3 {out['cross_sim3_s']:.3f} s); "
+          f"sim3_transform_map {out['sim3_transform_s']:.3f} + merge_maps "
+          f"{out['merge_maps_s']:.3f} + seam fuse {out['seam_fuse_s']:.3f} + seam essential "
+          f"graph {out['seam_essential_graph_s']:.3f} + run_gba {g['seconds']:.3f} (solver "
+          f"{g['solver_s']:.3f}, host plan {g['plan_s']:.3f}, MC {g['mc_s']:.3f}); merge GBA "
+          f"launches {g['launches']}, interrupted {g['interrupted']} (INTERRUPTBA: fresh agent "
+          f"data on the channel), reverted {g['reverted']}, deleted {g['n_deleted_kfs']}")
+    print(f"phase 15 final GBA on {smi}: {final_s:.3f} s (solver {fg['solver_s']:.3f}, host plan "
+          f"{fg['plan_s']:.3f}, MC {fg['mc_s']:.3f}); MC verdict: reverted {fg['reverted']}, "
+          f"deleted {fg['n_deleted_kfs']}, longest run {fg['mc_longest_run']}; launches "
+          f"{fg['launches']}")
+    print(json.dumps({"merge": out}))
+    return out
+
+
+def loop_phase(device, smi: str) -> dict:
+    """Phase 16: loop closing on a drifted revisit in a server-capacity map.
+    Returns its results."""
+    from motioncheck_ccm_slam_tpu_torch.config import DEFAULT_CONFIG
+    from motioncheck_ccm_slam_tpu_torch.models import gba as gba_mod, loop_closing
+    from motioncheck_ccm_slam_tpu_torch.models.database import KeyFrameDatabase
+    from motioncheck_ccm_slam_tpu_torch.models.vocabulary import default_vocabulary
+
+    cfg = DEFAULT_CONFIG
+    t0 = time.perf_counter()
+    m, slots1, slots2, poses = drifted_revisit(cfg, device)
+    torch.cuda.synchronize()
+    t_map = time.perf_counter() - t0
+    print(f"phase 16 drifted revisit: {len(slots1)} + {len(slots2)} keyframes, {m.n_mps} "
+          f"landmarks in a {m.nk} x {m.nm} map; built in {t_map:.2f} s on the host")
+    chosen = gba_mod._pick_solver(m.nk, m.nm)
+    check(chosen is not None and chosen.__qualname__.startswith("make_tile_gba"),
+          f"_pick_solver chose {chosen} for the loop map, not the tile-stream GBA")
+
+    def centre_errors():
+        T = m.kf.Tcw.cpu().numpy()
+        return [float(np.linalg.norm(np.linalg.inv(T[s])[:3, 3] - np.linalg.inv(poses[k])[:3, 3]))
+                for k, s in enumerate(slots2)]
+
+    before = centre_errors()
+    closer = loop_closing.LoopCloser(
+        config=cfg, map=m, run_gba_after_loop=True,
+        database=KeyFrameDatabase(vocab=default_vocabulary(), capacity=m.nk, device=device))
+    parts = [(closer, "detect", "detect"), (closer, "compute_sim3", "compute_sim3"),
+             (closer, "correct_loop", "correct_loop"),
+             (closer, "_optimize_essential_graph", "essential_graph")]
+    t0 = time.perf_counter()
+    with recorded_gbas() as gbas, timed_calls(parts) as secs:
+        closed = [closer.process_keyframe(s) for s in slots1 + slots2]
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    after = centre_errors()
+    check(closer.n_loops_closed >= 1 and any(closed), "no loop closed")
+    le = m.kf.loop_edge.cpu().numpy()
+    ends = np.flatnonzero(le >= 0)
+    check(len(ends) >= 2 and all(le[le[s]] == s for s in ends),
+          f"loop edges not recorded at both ends: {le[ends]} at {ends}")
+    check(len(gbas) >= 1, "the loop ran no GBA")
+    check(all(gbas[0]["launches"][n] >= 1 for n in GBA_KERNELS),
+          f"the loop GBA's launches {gbas[0]['launches']}")
+    check(min(after) < LOOP_MIN_ERR_M and np.mean(after) < LOOP_MEAN_ERR_M,
+          f"drift not removed: centre errors {np.round(after, 4).tolist()}")
+    s = {k: sum(v) for k, v in secs.items()}
+    gba_s = sum(g["seconds"] for g in gbas)
+    out = {"card": smi, "map_build_s": t_map, "n_loops_closed": closer.n_loops_closed,
+           "n_regba": closer.n_regba, "loop_edges": {int(a): int(le[a]) for a in ends},
+           "centre_err_before_m": before, "centre_err_after_m": after, "seconds": total,
+           "detect_s": s["detect"], "compute_sim3_s": s["compute_sim3"],
+           "correct_loop_s": s["correct_loop"], "essential_graph_s": s["essential_graph"],
+           "gba_s": gba_s, "gbas": gbas}
+    print(f"phase 16 loop: {closer.n_loops_closed} closed, edges {out['loop_edges']}, "
+          f"{len(gbas)} GBA(s) ({[g['mc_mode'] for g in gbas]}; follow-ups {closer.n_regba}); "
+          f"revisit centre errors {np.mean(before):.4f} m mean before, {np.mean(after):.4f} m "
+          f"mean / {min(after):.4f} m min after; launches {gbas[0]['launches']}")
+    print(f"phase 16 times on {smi}: {total:.3f} s = detect {s['detect']:.3f} + compute_sim3 "
+          f"{s['compute_sim3']:.3f} + correct_loop {s['correct_loop']:.3f} (essential graph "
+          f"{s['essential_graph']:.3f}, GBA {gba_s:.3f}: solver "
+          f"{sum(g['solver_s'] for g in gbas):.3f}, host plan {sum(g['plan_s'] for g in gbas):.3f}"
+          f", MC {sum(g['mc_s'] for g in gbas):.3f}); GBA verdicts "
+          f"{[(g['reverted'], g['n_deleted_kfs'], g['mc_gated']) for g in gbas]}")
+    print(json.dumps({"loop": out}))
+    return out
+
+
+class PhaseClock:
+    """Prints each phase's own seconds (host clock) as the next begins."""
+
+    def __init__(self):
+        self.phase, self.t0, self.seconds = None, time.perf_counter(), {}
+
+    def start(self, phase) -> None:
+        now = time.perf_counter()
+        if self.phase is not None:
+            self.seconds[self.phase] = now - self.t0
+            print(f"phase {self.phase} took {now - self.t0:.2f} s")
+        self.phase, self.t0 = phase, now
+
+
+CLOCK = PhaseClock()
+
+
 def main() -> None:
     # phase 1: the card
+    CLOCK.start(1)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false: no GPU")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1438,6 +1926,7 @@ def main() -> None:
     k1_kw = dict(th_hi=float(ex.ini_th_fast), th_lo=float(ex.min_th_fast),
                  border=ex.edge_threshold)
 
+    CLOCK.start(2)
     # phase 2: build both sources, one nvcc each, started together
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as pool:
@@ -1460,6 +1949,7 @@ def main() -> None:
                                     .astype(np.float32)).to(device) for lv in rendered],
     }
 
+    CLOCK.start(3)
     # phase 3: K1 vs its plain version, bitwise: each frame's 8 levels in
     # one launch, and the one-level wrapper at one odd shape
     odd = torch.from_numpy(np.random.default_rng(4).uniform(0, 255, K2_ODD_SHAPE)
@@ -1484,6 +1974,7 @@ def main() -> None:
           f"{[tuple(lv.shape) for lv in rendered]}, rendered and random, one launch a "
           f"frame, and the one-level wrapper at {K2_ODD_SHAPE}")
 
+    CLOCK.start(4)
     # phase 4: K2 vs its plain version, within tolerance: each frame's 8
     # levels in one launch, and the one-level wrapper at one odd shape
     cases = [(name, fast_cuda.blur_and_moments_levels(levels, half_patch=ex.half_patch_size),
@@ -1504,6 +1995,7 @@ def main() -> None:
           f"m01 {k2_err[2]:.3g} (atol {K2_ATOL}) on every level, one launch a frame, and "
           f"the one-level wrapper at {K2_ODD_SHAPE}")
 
+    CLOCK.start(5)
     # phase 5: track N_FRAMES frames through the port's Tracker
     fr0 = frame_mod.make_frame(cfg, 0, 0.0, frames[0], device)
     fr0.Tcw = torch.from_numpy(scene.pose(0)).to(device)
@@ -1537,6 +2029,7 @@ def main() -> None:
     print(f"phase 5 tracking: {N_FRAMES} frames OK, final centre error "
           f"{errs[-1]:.4f} m, launches {launches}")
 
+    CLOCK.start(6)
     # phase 6: timing (turns: plain, kernel, kernel, plain)
     fn, _ = entry(device)
     img1 = torch.from_numpy(frames[1]).to(device)
@@ -1634,8 +2127,16 @@ def main() -> None:
     records.update(gba_records)
     records.update(mf_phases(device, smi, ctx))
     del ctx
+    CLOCK.start(13)
     driver_phases(device, smi)
+    CLOCK.start(14)
     agent_phase(device, smi)
+    CLOCK.start(15)
+    merge_phase(device, smi)
+    CLOCK.start(16)
+    loop_phase(device, smi)
+    CLOCK.start(None)
+    print(json.dumps({"phase_seconds": CLOCK.seconds}))
 
     print(json.dumps({"step_ms": step_med["kernel"], "step_plain_ms": step_med["plain"],
                       "final_centre_error_m": errs[-1], "card": smi}))

@@ -271,6 +271,22 @@ def sim3_log(S: torch.Tensor) -> torch.Tensor:
     return torch.cat([w, v, sigma[..., None]], -1)
 
 
+def jacobian_fwd(f, x: torch.Tensor, *args) -> torch.Tensor:
+    """Forward-mode Jacobian of ``f(x, *args)`` at ``x`` (B, n), where
+    row b of the output depends on row b of ``x`` and of each of ``args``
+    only. One ``torch.func.jvp`` over n copies of the batch, copy k
+    carrying the k-th unit tangent. Returns (B, ..., n) for an output
+    (B, ...). (``torch.func.jacfwd`` vmaps the tangents instead, and under
+    vmap torch's rules gave NaN tangents to all but the first of a batch of
+    Sim3 logs and float64 tangents to 0-dim float32 tensors.)"""
+    B, n = x.shape
+    eye = torch.eye(n, dtype=x.dtype, device=x.device)
+    copies = [a.repeat((n,) + (1,) * (a.dim() - 1)) for a in args]
+    _, tangent = torch.func.jvp(lambda z: f(z, *copies), (x.repeat(n, 1),),
+                                (eye.repeat_interleave(B, dim=0),))
+    return tangent.reshape((n, B) + tangent.shape[1:]).movedim(0, -1)
+
+
 # ---------------------------------------------------------------------------
 # Horn closed-form similarity alignment (Sim3 RANSAC, ATE)
 # ---------------------------------------------------------------------------

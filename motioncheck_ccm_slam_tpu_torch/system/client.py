@@ -4,9 +4,10 @@ Counterpart of ``motioncheck_ccm_slam_tpu/system/client.py`` (the
 reference's ``ClientSystem`` + ``ClientHandler`` client role,
 src/client/ClientSystem.cpp, src/ClientHandler.cpp:157-188): a synchronous
 per-frame pipeline, tracking every frame and mapping on keyframe creation,
-in place of four threads synchronized with spin-locks. The map lives on
-``device`` (the card unless the caller asks for the CPU). ``comm`` stays
-None here: the communicator is not ported.
+in place of four threads synchronized with spin-locks, with the
+communicator (``parallel/comm.ClientComm``, attached by the runner)
+draining its outbox between frames. The map lives on ``device`` (the card
+unless the caller asks for the CPU).
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ class ClientSystem:
     map: ms.MapState = None
     tracker: tracking_mod.Tracker = None
     mapper: mapping_mod.LocalMapper = None
-    comm: object = None      # a communicator, when one is ported
+    comm: object = None      # optional ClientComm, set by the runner
     # liveness watchdog (reference estd::mylog; tracking/mapping/comm beats)
     watchdog: watchdog_mod.Watchdog = dataclasses.field(
         default_factory=lambda: watchdog_mod.Watchdog(timeout_s=30.0))

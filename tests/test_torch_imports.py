@@ -18,7 +18,9 @@ from motioncheck_ccm_slam_tpu_torch import config as tconfig
 from motioncheck_ccm_slam_tpu_torch import entry as tentry
 from motioncheck_ccm_slam_tpu_torch.models import map_state as tmap
 from motioncheck_ccm_slam_tpu_torch.models import tracking as ttrack
-from motioncheck_ccm_slam_tpu_torch.system import client as tclient
+from motioncheck_ccm_slam_tpu_torch.models import database as tdb, loop_closing as tlc
+from motioncheck_ccm_slam_tpu_torch.models import map_matching as tmm, vocabulary as tvoc
+from motioncheck_ccm_slam_tpu_torch.system import client as tclient, server as tserver
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -49,7 +51,10 @@ def test_port_imports_no_jax_and_no_triton():
             "solvers.local_ba", "models.map_state", "models.frame",
             "models.tracking", "models.motion_check", "models.gba",
             "parallel.sharded_ba", "ops.ransac", "models.mapping", "system.client",
-            "utils.watchdog", "utils.csv_io")
+            "utils.watchdog", "utils.csv_io", "utils.ids", "models.vocabulary",
+            "models.database", "models.loop_closing", "models.map_matching",
+            "models.map_merging", "solvers.sim3_opt", "solvers.pose_graph",
+            "parallel.comm", "system.server")
     }
     assert expected <= set(out["modules"]), expected - set(out["modules"])
     assert out["jax"] == []
@@ -77,7 +82,26 @@ def test_entry_points_default_to_the_card():
     for fn in (tentry.entry, tentry.gba_entry, tentry.matrix_free_gba_entry,
                tentry.server_gba_entry, tentry.gba_problem, tentry.server_map,
                tmap.empty_mp_block, tmap.empty_kf_block, tmap.MapState.create,
-               tclient.ClientSystem):
+               tclient.ClientSystem, tserver.ServerSystem, tdb.KeyFrameDatabase,
+               tvoc.make_transform):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
     t = ttrack.Tracker(config=tconfig.DEFAULT_CONFIG, map=None)
     assert t.device == torch.device("cuda")
+
+
+def test_server_components_follow_their_maps():
+    """LoopCloser and MapMatcher hold no device of their own: their RANSAC
+    generators (and the matcher's database) live on their maps' device,
+    which MapState.create puts on the card by default. On a CPU map they
+    stay on the CPU."""
+    for cls in (tlc.LoopCloser, tmm.MapMatcher):
+        assert "device" not in inspect.signature(cls).parameters, cls.__name__
+    cfg = tconfig.DEFAULT_CONFIG.replace(capacity=tconfig.CapacityParams(
+        client_max_kfs=4, client_max_mps=64, server_max_kfs=4, server_max_mps=64))
+    m = tmap.MapState.create(cfg, server=True, device="cpu")
+    vocab = tvoc.default_vocabulary(k=4, levels=3, n_train=4000)
+    closer = tlc.LoopCloser(config=cfg, map=m,
+                            database=tdb.KeyFrameDatabase(vocab=vocab, capacity=4, device="cpu"))
+    matcher = tmm.MapMatcher(config=cfg, maps={0: m}, vocab=vocab)
+    assert closer.generator.device == matcher.generator.device == torch.device("cpu")
+    assert matcher.db.bow.device == torch.device("cpu")
