@@ -115,19 +115,47 @@ ClientComm on the server's channels, in process):
     errors below 0.08 m (least) and 0.16 m (mean). Prints the seconds of
     detection, compute_sim3, correct_loop, the essential graph and the GBA.
 
+The command line (cli.py: the entry points a user runs), at full width
+unless it says --small:
+
+17. in process, ``cli synth --agents 2 --frames 36`` (DEFAULT_CONFIG on
+    the pinhole camera, utils/synth_scene.SynthScene, map matching from
+    keyframe 30, so no merge): both agents OK, each agent's ATE <= 0.10 m,
+    no silent watchdog module, the final GBA once with K3-K7 launched, K1
+    and K2 once a frame of each agent, and its files (stats.json,
+    frames_client{0,1}.tum, KF_FINAL_*.tum, map_*.html, a map_*.png that
+    utils/png decodes); then the JAX fixture ``synth --agents 2 --frames
+    36 --small --save-map``: one merge, both agents OK, each ATE <= 0.10 m,
+    no silent module; then ``synth --agents 1 --frames 12 --small
+    --load-map`` of the saved map: it mounts as handler 1 with the saved
+    keyframe count. Prints the frame medians and the final GBA's seconds.
+18. ``cli serve --agents 2 --port 0`` and two ``cli agent --id {0,1}
+    --frames 36``, three processes on the one card under ``timeout`` (the
+    port read from the server's "listening" line): the server's final GBA
+    done with K3-K7 launched, each agent OK with every keyframe acked and
+    K1/K2 once a frame, the server holding at least the agents' keyframes
+    less 2, no CRC error, every process exiting 0. Prints the bytes on the
+    wire a keyframe and a keyframe message, and each process's seconds.
+
 Each phase prints its own seconds. Prints a JSON line of step results,
 one of GBA results, one each of the matrix-free GBA's, the driver's, the
-agent's, the merge's and the loop's results, one of each phase's seconds,
-one of kernel results, the card's name and power limit and, last, the contract line
-``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
-without a GPU it exits non-zero before printing any result.
+agent's, the merge's, the loop's, the CLI's and the TCP run's results, one
+of each phase's seconds, one of kernel results, the card's name and power
+limit and, last, the contract line ``{"ok": true, "device": {...}}``. Any
+failure raises and exits non-zero; without a GPU it exits non-zero before
+printing any result.
 
 Usage: python3 chip_smoke.py
 """
 from __future__ import annotations
 
 import contextlib
+import io
 import json
+import os
+import re
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -217,6 +245,14 @@ MERGE_OFFSET_Y, MERGE_START_AFTER_KF, MERGE_AFTER, MERGE_MAX_FRAMES = 0.3, 2, 5,
 MERGE_MAX_ATE_M = 0.10
 # phase 16, loop closing: tests/test_loop_closing.test_drift_removed's limits
 LOOP_MIN_ERR_M, LOOP_MEAN_ERR_M = 0.08, 0.16
+# phases 17-18, the command line: frames an agent (the JAX fixture's 36),
+# the --load-map run's frames, the ATE bound, each process's time limit;
+# the CLI's outputs go under build/
+CLI_FRAMES, CLI_LOAD_FRAMES, CLI_MAX_ATE_M, CLI_PROC_TIMEOUT_S = 36, 12, 0.10, 300
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CLI_DIR = os.path.join(ROOT, "build", "chip_smoke_cli")
+FAST_LEVEL_KERNELS = {"masked_corner_score": "masked_corner_score_levels",
+                      "blur_and_moments": "blur_and_moments_levels"}
 
 
 # The camera-table kernels' edge shapes (K3, K4, K5, K7): (name, C, L,
@@ -1351,9 +1387,7 @@ def agent_phase(device, smi: str) -> dict:
           f"levels, {cfg.extractor.max_features} feature slots, client map "
           f"{cap.client_max_kfs} keyframes x {cap.client_max_mps} landmarks")
     torch.cuda.synchronize()
-    for f in (fast_cuda.masked_corner_score_levels, fast_cuda.masked_corner_score,
-              fast_cuda.blur_and_moments_levels, fast_cuda.blur_and_moments):
-        f.launches = 0
+    zero_fast_launches()
     log, blackout = [], None
     with timed_agent(client) as part:
         k = 0
@@ -1386,8 +1420,7 @@ def agent_phase(device, smi: str) -> dict:
                             mps=client.map.n_mps))
             k += 1
     n_frames = k
-    launches = {"masked_corner_score": fast_cuda.masked_corner_score_levels.launches,
-                "blur_and_moments": fast_cuda.blur_and_moments_levels.launches}
+    launches = fast_launches()
     for r in log:
         print(f"  frame {r['k']:2d}: {r['state']:9s} {r['kind']:8s} {r['ms']:8.1f} ms "
               f"(tracking {r['track_ms']:.1f}, mapping {r['map_ms']:.1f}, local BA "
@@ -1586,8 +1619,9 @@ def recorded_gbas():
 
 @contextlib.contextmanager
 def timed_calls(targets):
-    """Time ``(owner, attribute, label)`` callables for the block, each
-    call ending in a device synchronize; yields label -> list of seconds."""
+    """Time ``(owner, attribute, label)`` callables (a class's methods
+    included) for the block, each call ending in a device synchronize;
+    yields label -> list of seconds."""
     secs = {label: [] for _, _, label in targets}
     saved = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in targets]
 
@@ -1643,7 +1677,6 @@ def merge_phase(device, smi: str) -> dict:
     from motioncheck_ccm_slam_tpu_torch.models import map_merging, mapping as mapping_mod
     from motioncheck_ccm_slam_tpu_torch.models.map_state import check_structure
     from motioncheck_ccm_slam_tpu_torch.models.tracking import TrackState
-    from motioncheck_ccm_slam_tpu_torch.ops import fast_cuda
     from motioncheck_ccm_slam_tpu_torch.parallel.comm import ClientComm
     from motioncheck_ccm_slam_tpu_torch.system.client import ClientSystem
     from motioncheck_ccm_slam_tpu_torch.system.server import ServerSystem
@@ -1672,8 +1705,7 @@ def merge_phase(device, smi: str) -> dict:
     check(chosen is not None and chosen.__qualname__.startswith("make_tile_gba"),
           f"_pick_solver chose {chosen} at server capacity, not the tile-stream GBA")
     torch.cuda.synchronize()
-    for f in (fast_cuda.masked_corner_score_levels, fast_cuda.blur_and_moments_levels):
-        f.launches = 0
+    zero_fast_launches()
     merge_parts = [(server.matcher, "check", "matcher_check"),
                    (server.matcher, "_compute_cross_sim3", "cross_sim3"),
                    (map_merging, "sim3_transform_map", "sim3_transform_map"),
@@ -1725,8 +1757,7 @@ def merge_phase(device, smi: str) -> dict:
                     merged_at = k
                 k += 1
             n_frames = k
-            launches = {"masked_corner_score": fast_cuda.masked_corner_score_levels.launches,
-                        "blur_and_moments": fast_cuda.blur_and_moments_levels.launches}
+            launches = fast_launches()
             # the flush ticks, then the agents go idle (tests/test_multi_agent.py)
             for _ in range(3):
                 for c in clients:
@@ -1884,6 +1915,290 @@ def loop_phase(device, smi: str) -> dict:
     return out
 
 
+def fast_launches() -> dict:
+    """K1's and K2's launch counts (the one-launch-a-frame wrappers)."""
+    from motioncheck_ccm_slam_tpu_torch.ops import fast_cuda
+
+    return {n: getattr(fast_cuda, f).launches for n, f in FAST_LEVEL_KERNELS.items()}
+
+
+def zero_fast_launches() -> None:
+    """Zero K1's and K2's launch counts, the one-level wrappers' too."""
+    from motioncheck_ccm_slam_tpu_torch.ops import fast_cuda
+
+    for f in (*FAST_LEVEL_KERNELS.values(), *FAST_LEVEL_KERNELS):
+        getattr(fast_cuda, f).launches = 0
+
+
+def run_cli(argv, log_path: str):
+    """cli.main(argv) in process, its standard output written to
+    ``log_path``: returns (its stats, that output)."""
+    from motioncheck_ccm_slam_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        stats = cli.main(argv)
+    with open(log_path, "w") as f:
+        f.write(buf.getvalue())
+    return stats, buf.getvalue()
+
+
+def check_synth(stats: dict, n_agents: int, label: str) -> list:
+    """The JAX fixture's per-run gates: every agent OK within the ATE
+    bound, no silent watchdog module. Returns the ATEs."""
+    ate = []
+    for cid in range(n_agents):
+        a = stats["agents"][cid]
+        check(a["state"] == "OK", f"{label}: agent {cid} ends in {a['state']}")
+        check(a.get("ate_rmse_m") is not None and a["ate_rmse_m"] <= CLI_MAX_ATE_M,
+              f"{label}: agent {cid}'s ATE {a.get('ate_rmse_m')} m")
+        ate.append(a["ate_rmse_m"])
+    check(stats["watchdog_silent"] == [], f"{label}: silent modules {stats['watchdog_silent']}")
+    return ate
+
+
+def cli_phase(device, smi: str, extra_args=()) -> dict:
+    """Phase 17: the port's command line in process. ``cli synth --agents
+    2 --frames 36`` at full width (DEFAULT_CONFIG on the pinhole camera),
+    then the JAX fixture ``--small`` with its merge and ``--save-map``, then
+    ``--agents 1 --frames 12 --small --load-map`` of that map. ``extra_args``
+    end every command line (a CPU rehearsal: ``--device cpu --small``).
+    Returns its results."""
+    extra = list(extra_args)
+    from motioncheck_ccm_slam_tpu_torch.system.client import ClientSystem
+    from motioncheck_ccm_slam_tpu_torch.system.server import ServerSystem
+    from motioncheck_ccm_slam_tpu_torch.utils import png
+
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    os.makedirs(CLI_DIR)
+    full = os.path.join(CLI_DIR, "synth_full")
+    torch.cuda.synchronize()
+    zero_fast_launches()
+    calls = [(ClientSystem, "process_image", "frame"), (ServerSystem, "maybe_final_gba", "final")]
+    with recorded_gbas() as gbas, timed_calls(calls) as timed:
+        t0 = time.perf_counter()
+        stats, _ = run_cli(["synth", "--agents", "2", "--frames", str(CLI_FRAMES), "--out", full]
+                           + extra, full + ".log")
+        wall = time.perf_counter() - t0
+    launches = fast_launches()
+    frames, finals = timed["frame"], timed["final"]
+    ate = check_synth(stats, 2, "synth at full width")
+    # the finish calls maybe_final_gba once; done, it ran one GBA a distinct
+    # server map, the last GBAs of the run, none interrupted (at full width
+    # no merge or loop comes before them)
+    n_maps = len(stats["server_maps"])
+    final_gbas = gbas[-n_maps:]
+    check(len(finals) == 1 and len(gbas) >= n_maps
+          and not any(g["interrupted"] for g in final_gbas),
+          f"{len(finals)} final GBA calls; GBAs {len(gbas)} over {n_maps} maps, the last "
+          f"interrupted {[g['interrupted'] for g in final_gbas]}")
+    check(all(g["launches"][n] >= 1 for g in final_gbas for n in GBA_KERNELS),
+          f"the final GBA's launches {[g['launches'] for g in final_gbas]}")
+    for name, n in launches.items():
+        check(n == 2 * CLI_FRAMES, f"{name} launched {n} times in {CLI_FRAMES} frames of 2 agents")
+    names = os.listdir(full)
+    for need in ("stats.json", "frames_client0.tum", "frames_client1.tum"):
+        check(need in names, f"synth wrote no {need}")
+    for pattern in (r"KF_FINAL_\d+\.tum", r"map_\d+\.html", r"map_\d+\.png"):
+        check(any(re.fullmatch(pattern, n) for n in names), f"synth wrote no {pattern}")
+    for n in names:
+        if re.fullmatch(r"map_\d+\.png", n):
+            img = png.read_png(os.path.join(full, n))
+            check(img.ndim == 3 and (img != 255).any(), f"{n} decodes to {img.shape}, blank")
+    frame_ms = [statistics.median(1e3 * t for t in frames[cid::2]) for cid in (0, 1)]
+    # the final GBA's parts and launches, summed over its maps
+    final_gba = {k: sum(g[k] for g in final_gbas) for k in ("solver_s", "plan_s", "mc_s")}
+    final_gba["launches"] = {n: sum(g["launches"][n] for g in final_gbas) for n in GBA_KERNELS}
+    out = {"card": smi, "full": {
+        "seconds": wall, "n_merges": stats["n_merges"], "ate_m": ate,
+        "kfs": [stats["agents"][c]["client_kfs"] for c in (0, 1)],
+        "server_maps": stats["server_maps"], "frame_ms_median": frame_ms,
+        "frame_ms_max": [max(1e3 * t for t in frames[c::2]) for c in (0, 1)],
+        "final_gba_s": finals[0], "final_gba_solver_s": final_gba["solver_s"],
+        "final_gba_plan_s": final_gba["plan_s"], "final_gba_mc_s": final_gba["mc_s"],
+        "final_gba_launches": final_gba["launches"], "n_gbas": len(gbas), "launches": launches}}
+    print(f"phase 17 synth at full width: {CLI_FRAMES} frames of 2 agents in {wall:.2f} s; "
+          f"ATE {ate[0]:.4f} / {ate[1]:.4f} m; {stats['n_merges']} merges (map matching from "
+          f"keyframe 30); server maps {stats['server_maps']}; launches {launches}")
+    print(f"phase 17 times on {smi}: frame median {frame_ms[0]:.1f} / {frame_ms[1]:.1f} ms; "
+          f"final GBA {finals[0]:.3f} s (solver {final_gba['solver_s']:.3f}, host plan "
+          f"{final_gba['plan_s']:.3f}, MC {final_gba['mc_s']:.3f}), launches "
+          f"{final_gba['launches']}")
+
+    # the JAX fixture: --small, map matching from keyframe 2: one merge
+    small, maps = os.path.join(CLI_DIR, "synth_small"), os.path.join(CLI_DIR, "maps")
+    zero_fast_launches()
+    t0 = time.perf_counter()
+    stats, _ = run_cli(["synth", "--agents", "2", "--frames", str(CLI_FRAMES), "--small",
+                        "--save-map", maps, "--out", small] + extra, small + ".log")
+    small_s = time.perf_counter() - t0
+    ate_small = check_synth(stats, 2, "the --small fixture")
+    check(stats["n_merges"] == 1, f"the --small fixture made {stats['n_merges']} merges")
+    saved = os.path.join(maps, "map_0.npz")
+    with open(saved + ".index.json") as f:
+        n_saved = len(json.load(f)["kf_slots"])
+    out["small"] = {"seconds": small_s, "n_merges": stats["n_merges"], "ate_m": ate_small,
+                    "server_maps": stats["server_maps"], "saved_kfs": n_saved,
+                    "launches": fast_launches()}
+    # mount the saved map as a prior map beside one live agent
+    load = os.path.join(CLI_DIR, "synth_load")
+    t0 = time.perf_counter()
+    stats, text = run_cli(["synth", "--agents", "1", "--frames", str(CLI_LOAD_FRAMES), "--small",
+                           "--load-map", saved, "--out", load] + extra, load + ".log")
+    mount = re.search(r"mounted prior map as handler (\d+): .* \((\d+) KFs\)", text)
+    check(mount is not None and int(mount[1]) == 1 and int(mount[2]) == n_saved,
+          f"the prior map mounted as {mount and mount.groups()}, saved with {n_saved} KFs")
+    out["load"] = {"seconds": time.perf_counter() - t0, "handler": int(mount[1]),
+                   "kfs": int(mount[2]), "n_merges": stats["n_merges"],
+                   "agent": stats["agents"][0], "server_maps": stats["server_maps"]}
+    print(f"phase 17 --small fixture: {out['small']['n_merges']} merge, ATE "
+          f"{ate_small[0]:.4f} / {ate_small[1]:.4f} m, {n_saved} KFs saved, {small_s:.2f} s; "
+          f"--load-map mounted handler {mount[1]} with {mount[2]} KFs beside one agent "
+          f"({out['load']['agent']['state']}, {stats['n_merges']} merges), "
+          f"{out['load']['seconds']:.2f} s")
+    print(json.dumps({"cli": out}))
+    return out
+
+
+def cli_child() -> None:
+    """A process of phase 18: ``cli.main(sys.argv[1:])`` with the codec's
+    framed bytes counted, then one line ``chip_smoke_child {...}``: the
+    command's stats, its seconds, its K1, K2 and K3-K7 launches and the
+    bytes it put on the wire (all messages; those carrying keyframes; each
+    keyframe's own share of its payload)."""
+    from motioncheck_ccm_slam_tpu_torch import cli
+    from motioncheck_ccm_slam_tpu_torch.parallel import codec, comm
+
+    wire = dict.fromkeys(("messages", "bytes", "kf_messages", "kf_message_bytes", "keyframes",
+                          "keyframe_bytes"), 0)
+    encode_framed = codec.encode_framed
+
+    def counted(msg):
+        data = encode_framed(msg)
+        wire["messages"] += 1
+        wire["bytes"] += len(data)
+        if msg.keyframes:
+            wire["kf_messages"] += 1
+            wire["kf_message_bytes"] += len(data)
+            empty = len(codec.encode(comm.MapMsg(sender_client_id=msg.sender_client_id)))
+            for k in msg.keyframes:
+                wire["keyframes"] += 1
+                wire["keyframe_bytes"] += len(codec.encode(comm.MapMsg(
+                    sender_client_id=msg.sender_client_id, keyframes=[k]))) - empty
+        return data
+
+    codec.encode_framed = counted
+    t0 = time.perf_counter()
+    stats = cli.main(sys.argv[1:])
+    print("chip_smoke_child " + json.dumps({
+        "stats": stats, "seconds": time.perf_counter() - t0,
+        "launches": {**fast_launches(), **read_launches(GBA_KERNELS)}, "wire": wire}), flush=True)
+
+
+def tcp_phase(device, smi: str, extra_args=()) -> dict:
+    """Phase 18: ``cli serve --agents 2 --port 0`` and two ``cli agent
+    --id {0,1} --frames 36`` at full width, three processes on the one
+    card, each under ``timeout``; the server's port is read from its
+    "listening" line. ``extra_args`` end every command line, as in
+    ``cli_phase``. Returns its results."""
+    out_dir = os.path.join(CLI_DIR, "tcp")
+    os.makedirs(out_dir, exist_ok=True)
+    torch.cuda.empty_cache()
+    base = ["timeout", "-k", "10", str(CLI_PROC_TIMEOUT_S), sys.executable, "-c",
+            "import chip_smoke; chip_smoke.cli_child()"]
+    procs, started, ended, files = {}, {}, {}, {}
+
+    def start(name, argv):
+        files[name] = (open(os.path.join(out_dir, name + ".out"), "w"),
+                       open(os.path.join(out_dir, name + ".err"), "w"))
+        started[name] = time.perf_counter()
+        procs[name] = subprocess.Popen(base + argv + list(extra_args), cwd=ROOT,
+                                       stdout=files[name][0], stderr=files[name][1],
+                                       start_new_session=True)
+
+    def text(name, k=0):
+        with open(files[name][k].name) as f:
+            return f.read()
+
+    try:
+        start("server", ["serve", "--agents", "2", "--port", "0", "--timeout",
+                         str(CLI_PROC_TIMEOUT_S - 60), "--out", os.path.join(out_dir, "server")])
+        while True:
+            m = re.search(r"server listening on [\d.]+:(\d+)", text("server"))
+            if m:
+                port = int(m[1])
+                break
+            check(procs["server"].poll() is None, f"the server exited before listening: "
+                  f"{text('server', 1)[-2000:]}")
+            check(time.perf_counter() - started["server"] < 120, "the server never listened")
+            time.sleep(0.1)
+        listen_s = time.perf_counter() - started["server"]
+        for cid in (0, 1):
+            start(f"agent{cid}", ["agent", "--connect", f"127.0.0.1:{port}", "--id", str(cid),
+                                  "--frames", str(CLI_FRAMES)])
+        while len(ended) < len(procs):
+            for name, p in procs.items():
+                if name not in ended and p.poll() is not None:
+                    ended[name] = time.perf_counter() - started[name]
+            check(time.perf_counter() - started["server"] < CLI_PROC_TIMEOUT_S + 30,
+                  f"processes still running: {sorted(set(procs) - set(ended))}")
+            time.sleep(0.05)
+    finally:
+        for name, p in procs.items():
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+        for f in files.values():
+            f[0].close()
+            f[1].close()
+
+    res = {}
+    for name, p in procs.items():
+        check(p.returncode == 0, f"{name} exited {p.returncode}: {text(name, 1)[-3000:]}")
+        both = text(name) + text(name, 1)
+        check("CRC" not in both, f"{name} reported a CRC error")
+        line = [ln for ln in text(name).splitlines() if ln.startswith("chip_smoke_child ")]
+        check(len(line) == 1, f"{name} printed no result")
+        res[name] = json.loads(line[0][len("chip_smoke_child "):])
+    srv = res["server"]["stats"]
+    check(srv["final_gba_done"] is True, "the server's final GBA did not run")
+    agent_kfs = 0
+    for cid in (0, 1):
+        a = res[f"agent{cid}"]
+        check(a["stats"]["state"] == "OK", f"agent {cid} ends in {a['stats']['state']}")
+        check(a["stats"]["unacked_kf"] == 0, f"agent {cid}: {a['stats']['unacked_kf']} unacked")
+        for name in FAST_LEVEL_KERNELS:
+            check(a["launches"][name] == CLI_FRAMES,
+                  f"agent {cid}: {name} launched {a['launches'][name]} times")
+        agent_kfs += a["stats"]["client_kfs"]
+    server_kfs = sum(m["kfs"] for m in srv["server_maps"])
+    check(server_kfs >= agent_kfs - 2, f"the server holds {server_kfs} of {agent_kfs} keyframes")
+    check(all(res["server"]["launches"][n] >= 1 for n in GBA_KERNELS),
+          f"the server's GBA launches {res['server']['launches']}")
+    up = [res[f"agent{c}"]["wire"] for c in (0, 1)]
+    n_kf = sum(w["keyframes"] for w in up)
+    out = {
+        "card": smi, "port": port, "server_listening_s": listen_s, "wall_s": ended,
+        "server": srv, "agents": [res[f"agent{c}"]["stats"] for c in (0, 1)],
+        "launches": {name: res[name]["launches"] for name in res},
+        "wire": {name: res[name]["wire"] for name in res},
+        "keyframe_bytes_mean": sum(w["keyframe_bytes"] for w in up) / max(n_kf, 1),
+        "kf_message_bytes_mean": sum(w["kf_message_bytes"] for w in up)
+        / max(sum(w["kf_messages"] for w in up), 1),
+    }
+    print(f"phase 18 TCP: server on port {port} (listening after {listen_s:.2f} s), final GBA "
+          f"{srv['final_gba_done']}, server maps {srv['server_maps']}; agents "
+          f"{[a['state'] for a in out['agents']]} with {agent_kfs} KFs, unacked "
+          f"{[a['unacked_kf'] for a in out['agents']]}; launches {out['launches']}")
+    print(f"phase 18 wire at full width: {out['keyframe_bytes_mean']:.0f} bytes a keyframe "
+          f"({n_kf} keyframes sent), {out['kf_message_bytes_mean']:.0f} bytes a framed message "
+          f"carrying keyframes; all messages {[res[n]['wire']['bytes'] for n in res]} bytes")
+    print(f"phase 18 wall seconds on {smi}: " + ", ".join(
+        f"{name} {t:.2f}" for name, t in ended.items()))
+    print(json.dumps({"tcp": out}))
+    return out
+
+
 class PhaseClock:
     """Prints each phase's own seconds (host clock) as the next begins."""
 
@@ -1920,6 +2235,7 @@ def main() -> None:
     from motioncheck_ccm_slam_tpu_torch.models import frame as frame_mod
     from motioncheck_ccm_slam_tpu_torch.models.tracking import Tracker, TrackState
     from motioncheck_ccm_slam_tpu_torch.ops import fast_cuda, image as image_ops, schur_cuda
+    from motioncheck_ccm_slam_tpu_torch.utils import native
 
     cfg = DEFAULT_CONFIG
     ex = cfg.extractor
@@ -1929,11 +2245,12 @@ def main() -> None:
     CLOCK.start(2)
     # phase 2: build both sources, one nvcc each, started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        jobs = [pool.submit(fast_cuda.build), pool.submit(schur_cuda.build)]
-        log, schur_log = (j.result() for j in jobs)
+    with ThreadPoolExecutor(3) as pool:
+        jobs = [pool.submit(fast_cuda.build), pool.submit(schur_cuda.build),
+                pool.submit(native.build)]
+        log, schur_log, _ = (j.result() for j in jobs)
     print(f"phase 2 build: {time.perf_counter() - t0:.2f} s "
-          f"({fast_cuda.library_path()}, {schur_cuda.library_path()})")
+          f"({fast_cuda.library_path()}, {schur_cuda.library_path()}, {native.library_path()})")
     for line in log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             print("  " + line.strip())
@@ -2005,10 +2322,7 @@ def main() -> None:
     print(f"phase 5 map: {n_mps} landmarks from frame 0 in "
           f"{cfg.capacity.client_max_mps} slots")
     torch.cuda.synchronize()
-    fast_cuda.masked_corner_score_levels.launches = 0
-    fast_cuda.masked_corner_score.launches = 0
-    fast_cuda.blur_and_moments_levels.launches = 0
-    fast_cuda.blur_and_moments.launches = 0
+    zero_fast_launches()
     errs = []
     for k in range(1, N_FRAMES + 1):
         fr = tracker.process(frames[k], k / cfg.camera.fps)
@@ -2018,8 +2332,7 @@ def main() -> None:
         print(f"  frame {k:2d}: inliers {fr.n_tracked:4d}  centre error {err:.4f} m")
         check(tracker.state == TrackState.OK, f"frame {k}: tracking lost")
         check(fr.n_tracked >= MIN_INLIERS, f"frame {k}: {fr.n_tracked} inliers")
-    launches = {"masked_corner_score": fast_cuda.masked_corner_score_levels.launches,
-                "blur_and_moments": fast_cuda.blur_and_moments_levels.launches}
+    launches = fast_launches()
     check(errs[-1] < MAX_FINAL_ERR_M, f"final centre error {errs[-1]:.4f} m")
     # K1 and K2 once a frame each, over all levels
     for name, n in launches.items():
@@ -2135,6 +2448,10 @@ def main() -> None:
     merge_phase(device, smi)
     CLOCK.start(16)
     loop_phase(device, smi)
+    CLOCK.start(17)
+    cli_phase(device, smi)
+    CLOCK.start(18)
+    tcp_phase(device, smi)
     CLOCK.start(None)
     print(json.dumps({"phase_seconds": CLOCK.seconds}))
 

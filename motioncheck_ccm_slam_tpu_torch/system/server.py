@@ -327,6 +327,75 @@ class ServerSystem:
         return True
 
     # ------------------------------------------------------------------
+    def save_maps(self, out_dir: str) -> List[str]:
+        """Persist every distinct map (the reference's ccmslam_savemap
+        service, src/server/ServerSystem.cpp:36,63-79)."""
+        import os
+
+        from .. import persistence
+
+        os.makedirs(out_dir, exist_ok=True)
+        seen, paths = set(), []
+        for cid, h in sorted(self.handlers.items()):
+            if id(h.map) in seen:
+                continue
+            seen.add(id(h.map))
+            path = os.path.join(out_dir, f"map_{cid}.npz")
+            persistence.save_map(h.map, path)
+            paths.append(path)
+        return paths
+
+    def add_loaded_map(self, path: str) -> int:
+        """Mount a previously saved map as a PRIOR map under its own handler
+        slot (the reference's LoadMap launch param mounts a saved map for a
+        dedicated client slot, src/server/ServerSystem.cpp:96-116); live
+        agents can then place-recognize against it and merge into it.
+        Returns the handler id."""
+        from .. import persistence
+
+        hid = max(self.handlers) + 1 if self.handlers else 0
+        m = persistence.load_map(path, self.config, device=self.device)
+        # the loaded entities move into the handler's fresh client-id
+        # namespace so they can never collide with a live agent's ids (the
+        # reference reserves client slot 0 for the load and streams live
+        # agents on other ids). A merged map holds several clients' ids,
+        # which may repeat across clients: in one namespace they are
+        # interleaved (id * n + the client's rank among the n), else the
+        # host index would keep one entity of each repeated id (the JAX
+        # package's add_loaded_map loses them so). One client keeps its ids.
+        # The new ids keep every strict order of the old, breaking only ties
+        # across clients; of the id-ordered rules only the descriptor
+        # choice's recency bonus reads them on a server map (first_kf_id
+        # feeds the client's culling alone, and mp_tick -2 below exempts
+        # the mounted landmarks from the server's probation).
+        kf, mp = m.kf, m.mp
+        cids = torch.unique(torch.cat([kf.client_id[kf.valid], mp.client_id[mp.valid]]))
+        n = max(int(cids.numel()), 1)
+        kf_rank = torch.searchsorted(cids, kf.client_id).to(torch.int32)
+        mp_rank = torch.searchsorted(cids, mp.client_id).to(torch.int32)
+        m.kf = kf._replace(client_id=torch.where(kf.valid, hid, kf.client_id),
+                           kf_id=torch.where(kf.valid, kf.kf_id * n + kf_rank, kf.kf_id))
+        m.mp = mp._replace(
+            client_id=torch.where(mp.valid, hid, mp.client_id),
+            mp_id=torch.where(mp.valid, mp.mp_id * n + mp_rank, mp.mp_id),
+            first_kf_id=torch.where(mp.valid & (mp.first_kf_id >= 0),
+                                    mp.first_kf_id * n + mp_rank, mp.first_kf_id))
+        m.sync_host_index()
+        h = ServerClientHandler(config=self.config, client_id=hid, map=m,
+                                channel=comm_mod.Channel(), vocab=self.vocab)
+        # nothing will ever stream on this handler: mark it finished so it
+        # doesn't block FINALBA, and its landmarks probation-exempt
+        h.comm.agent_said_done = True
+        h.mp_tick = np.where(m.mp.valid.cpu().numpy(), -2, -1).astype(np.int32)
+        self.handlers[hid] = h
+        self.channels[hid] = h.channel
+        self.matcher.maps[hid] = m
+        for (kf_id, cid), slot in sorted(m.kf_slot_by_id.items()):
+            self.matcher.add_keyframe(hid, slot)
+            h.loop_closer.database.add(slot, m.kf.desc[slot], m.kf.feat_valid[slot], map_id=hid)
+        return hid
+
+    # ------------------------------------------------------------------
     def trajectories_tum(self) -> Dict[int, str]:
         """Per-agent keyframe trajectories (reference WriteStateToCsv)."""
         out = {}

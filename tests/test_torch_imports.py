@@ -1,8 +1,9 @@
 """Import guard for the torch port: every module of
 motioncheck_ccm_slam_tpu_torch imports without pulling in jax or any module
-of the JAX package, and none imports triton at module level (the CPU test
-host has no triton). The port's copy of the config holds the JAX package's
-operating points."""
+of the JAX package, none imports triton at module level (the CPU test
+host has no triton), and none imports matplotlib or PIL (the card's
+machine has neither). The port's copy of the config holds the JAX
+package's operating points."""
 import dataclasses
 import inspect
 import json
@@ -33,11 +34,13 @@ for n in names:
 top = {m.split(".")[0] for m in sys.modules}
 print(json.dumps({"modules": names, "jax": sorted(top & {"jax", "jaxlib"}),
                   "jax_package": "motioncheck_ccm_slam_tpu" in top,
-                  "triton": "triton" in top}))
+                  "triton": "triton" in top, "matplotlib": "matplotlib" in top,
+                  "PIL": "PIL" in top}))
 """
 
 
 def test_port_imports_no_jax_and_no_triton():
+    """Also no matplotlib and no PIL, after every port module is imported."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=300)
@@ -54,12 +57,16 @@ def test_port_imports_no_jax_and_no_triton():
             "utils.watchdog", "utils.csv_io", "utils.ids", "models.vocabulary",
             "models.database", "models.loop_closing", "models.map_matching",
             "models.map_merging", "solvers.sim3_opt", "solvers.pose_graph",
-            "parallel.comm", "system.server")
+            "parallel.comm", "system.server", "cli", "persistence", "parallel.codec",
+            "parallel.transport", "utils.native", "utils.png", "utils.viewer",
+            "utils.live_viewer", "utils.euroc", "utils.kitti", "utils.synth_scene")
     }
     assert expected <= set(out["modules"]), expected - set(out["modules"])
     assert out["jax"] == []
     assert out["jax_package"] is False
     assert out["triton"] is False
+    assert out["matplotlib"] is False
+    assert out["PIL"] is False
 
 
 @pytest.mark.parametrize("name", ["DEFAULT_CONFIG", "KITTI_CONFIG", "KITTI_HALF_RES_CONFIG"])
