@@ -137,10 +137,45 @@ unless it says --small:
     less 2, no CRC error, every process exiting 0. Prints the bytes on the
     wire a keyframe and a keyframe message, and each process's seconds.
 
+The multi-device GBA (parallel/sharded_ba.Shards: shards of the tile or
+observation axis, reduced on the first device in shard order and over a
+torch.distributed group), on the one card:
+
+19. from phase 9's perturbed start of bench_gba's problem, 10 LM
+    iterations each: (a) make_tile_gba over 2 and 4 shards on this card:
+    within phase 9's bounds of phase 9's one-device result; launches K3 =
+    11n, K5 = K6 = K7 = 10n, K4 a multiple of n (n x the sweeps); LM it/s
+    printed beside phases 9 and 10 (not gated). (b) two processes
+    (gba_child) sharing the card over a gloo group joined through a
+    FileStore, one shard each, under ``timeout``: each within the bounds of
+    (a)'s 2-shard result, with the full Xw and inlier mask, both ranks the
+    same PCG sweep count; beside them one process in an NCCL group of one,
+    one LM iteration, within the bounds of the one-device iteration. (c)
+    make_sharded_gba (the gather formulation, plain torch) over 2 shards:
+    within the bounds of phase 9's result; it/s printed. (d)
+    entry.dryrun_multichip over 2 shards at utils/bigmap's scale (the tile
+    GBA over the shards and on one device at 256 KFs x 8192 landmarks x
+    256 observations, the gather formulation at 1024 x 32,768 x 1024; 20
+    LM iterations in chunks of 5 through GBAJob): each finite, its mean
+    pose error below the start's. (e) _pick_solver's route with this
+    machine's card count (one card: the one-device tile GBA).
+20. tests/test_four_agents.py's scene at full width: four agents
+    (DEFAULT_CONFIG on the pinhole camera, phase 15's one cut: map
+    matching from keyframe 2; server maps 2048 x 65,536) on offset views
+    of one SynthScene world (0.12 m x the client id), 32 frames each, a
+    server spin a round, four flush rounds, then FINALBA. Gates: every
+    agent OK; _pick_solver at this capacity is the tile GBA; three merges,
+    each with one GBA launching K3-K7; every handler on one map holding
+    client ids {0..3}; FINALBA fires once over it, launching K3-K7, and
+    not again, no loop closer re-armed; every agent's keyframes in the
+    fused map, its path spanning the shared x axis; K1 and K2 once a frame
+    of each agent. Prints the frame medians, each merge's seconds and its
+    GBA's, and FINALBA's seconds.
+
 Each phase prints its own seconds. Prints a JSON line of step results,
 one of GBA results, one each of the matrix-free GBA's, the driver's, the
-agent's, the merge's, the loop's, the CLI's and the TCP run's results, one
-of each phase's seconds, one of kernel results, the card's name and power
+agent's, the merge's, the loop's, the CLI's, the TCP run's, the shards'
+and the four agents' results, one of each phase's seconds, one of kernel results, the card's name and power
 limit and, last, the contract line ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero; without a GPU it exits non-zero before
 printing any result.
@@ -249,6 +284,10 @@ LOOP_MIN_ERR_M, LOOP_MEAN_ERR_M = 0.08, 0.16
 # the --load-map run's frames, the ATE bound, each process's time limit;
 # the CLI's outputs go under build/
 CLI_FRAMES, CLI_LOAD_FRAMES, CLI_MAX_ATE_M, CLI_PROC_TIMEOUT_S = 36, 12, 0.10, 300
+# phase 19, the multi-device GBA: each rank's time limit
+SHARD_CHILD_TIMEOUT_S = 300
+# phase 20: tests/test_four_agents.py's agents and frames (its scene at full width)
+FOUR_AGENTS, FOUR_AGENT_FRAMES = 4, 32
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CLI_DIR = os.path.join(ROOT, "build", "chip_smoke_cli")
 FAST_LEVEL_KERNELS = {"masked_corner_score": "masked_corner_score_levels",
@@ -832,7 +871,7 @@ def gba_phases(device, smi: str, schur_log: str) -> dict:
     # phase 9: 10 LM iterations from the perturbed start, kernels then plain
     def robust_cost(T, X):
         Xpad = torch.cat([X, torch.zeros((tp.L_pad - L, 3), device=device)])
-        return float(sba._tile_linearize(T, Xpad, tp, st)[4])
+        return float(sba._tile_linearize(T, [Xpad], [tp], [st], sba.Shards([device]))[4])
 
     cost0 = robust_cost(Tcw_p, Xw_p)
     fn(Tcw_p, Xw_p, obs, K, fixed_cam, fixed_lm, n_iterations=0)   # builds fn's plan
@@ -995,6 +1034,8 @@ def gba_phases(device, smi: str, schur_log: str) -> dict:
         gba[f"profile_{label}"] = line
     print(json.dumps({"gba": gba}))
     ctx = dict(tp=tp, st=st, Tcw_p=Tcw_p, Xw_p=Xw_p, res_k=res_k, W18=W18,
+               args_p=(Tcw_p, Xw_p, obs, K, fixed_cam, fixed_lm),
+               iters_per_s_perturbed=GBA_ITERS / t_k, iters_per_s_bench=GBA_ITERS / dt,
                aux=aux, H9=H9, v=v, u=u, W0=W0, n_w=n_w, n_active=n_active,
                k6_library_ms=records["apply_a_raw"]["library_ms"],
                k7_library_ms=records["apply_b_raw"]["library_ms"], work=work)
@@ -1266,7 +1307,7 @@ def driver_phases(device, smi: str) -> dict:
     print(f"phase 13 server map: {m.nk} keyframes x {m.kf.xy.shape[1]} features, {m.nm} "
           f"landmarks, {n_obs} observations, all valid; built in {t_map:.2f} s on the host")
     check(bool(m.kf.valid.all()) and bool(m.mp.valid.all()), "the server map is not full")
-    chosen = gba_mod._pick_solver(m.nk, m.nm)
+    chosen = gba_mod._pick_solver(m.nk, m.nm, device=m.kf.Tcw.device)
     check(chosen is not None and chosen.__qualname__.startswith("make_tile_gba"),
           f"_pick_solver chose {chosen} for the server map, not the tile-stream GBA")
     iters, chunk = cfg.opt.gba_iterations, 5
@@ -1701,7 +1742,8 @@ def merge_phase(device, smi: str) -> dict:
         c = ClientSystem(c_cfg, device=device)
         c.comm = ClientComm(config=c_cfg, channel=server.channel_for(cid), client_id=cid)
         clients.append(c)
-    chosen = gba_mod._pick_solver(server.handlers[0].map.nk, server.handlers[0].map.nm)
+    m0 = server.handlers[0].map
+    chosen = gba_mod._pick_solver(m0.nk, m0.nm, device=m0.kf.Tcw.device)
     check(chosen is not None and chosen.__qualname__.startswith("make_tile_gba"),
           f"_pick_solver chose {chosen} at server capacity, not the tile-stream GBA")
     torch.cuda.synchronize()
@@ -1861,7 +1903,7 @@ def loop_phase(device, smi: str) -> dict:
     t_map = time.perf_counter() - t0
     print(f"phase 16 drifted revisit: {len(slots1)} + {len(slots2)} keyframes, {m.n_mps} "
           f"landmarks in a {m.nk} x {m.nm} map; built in {t_map:.2f} s on the host")
-    chosen = gba_mod._pick_solver(m.nk, m.nm)
+    chosen = gba_mod._pick_solver(m.nk, m.nm, device=m.kf.Tcw.device)
     check(chosen is not None and chosen.__qualname__.startswith("make_tile_gba"),
           f"_pick_solver chose {chosen} for the loop map, not the tile-stream GBA")
 
@@ -2095,6 +2137,124 @@ def cli_child() -> None:
         "launches": {**fast_launches(), **read_launches(GBA_KERNELS)}, "wire": wire}), flush=True)
 
 
+def load_gba_problem(problem: str, device):
+    """(Tcw, Xw, obs, K, fixed_cam, fixed_lm) on ``device``: "bench" is
+    entry.gba_problem's problem from ``perturbed_state``'s start (phase 9's);
+    else the path of an .npz with those arrays (``save_gba_problem``)."""
+    from motioncheck_ccm_slam_tpu_torch import convert
+    from motioncheck_ccm_slam_tpu_torch.entry import gba_problem
+
+    if problem == "bench":
+        Tcw, Xw, obs, K, fixed_cam, fixed_lm = gba_problem(device)
+        Tcw, Xw = perturbed_state(Tcw, Xw)
+        return Tcw, Xw, obs, K, fixed_cam, fixed_lm
+    a = np.load(problem)
+    obs = convert.ba_observations_from_numpy(types.SimpleNamespace(
+        cam_idx=a["cam_idx"], lm_idx=a["lm_idx"], uv=a["uv"], inv_sigma2=a["inv_sigma2"],
+        valid=a["valid"]), device)
+    Tcw, Xw, K, fc, fl = convert.gba_state_from_numpy(a["Tcw"], a["Xw"], a["K"], a["fixed_cam"],
+                                                      a["fixed_lm"], device)
+    return Tcw, Xw, obs, K, fc, fl
+
+
+def save_gba_problem(path: str, Tcw, Xw, obs, K, fixed_cam, fixed_lm) -> None:
+    """Writes a GBA problem (numpy arrays or tensors) for ``load_gba_problem``."""
+    def a(x):
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+    np.savez(path, Tcw=a(Tcw), Xw=a(Xw), K=a(K), fixed_cam=a(fixed_cam), fixed_lm=a(fixed_lm),
+             **{k: a(getattr(obs, k)) for k in ("cam_idx", "lm_idx", "uv", "inv_sigma2", "valid")})
+
+
+def gba_child() -> None:
+    """One rank of a multi-process GBA (phase 19 and the port's tests):
+    ``python -c "import chip_smoke; chip_smoke.gba_child()" PROBLEM OUT
+    SOLVER BACKEND RANK WORLD STORE DEVICE ITERS PCG``. Loads PROBLEM
+    (``load_gba_problem``) on DEVICE, joins a process group of WORLD ranks
+    over BACKEND ("gloo" or "nccl") through a FileStore at STORE, runs
+    SOLVER ("tile": make_tile_gba, "gather": make_sharded_gba) for ITERS
+    LM iterations of at most PCG sweeps with one shard on DEVICE over the
+    group, and saves Tcw, Xw, obs_inlier and cost to OUT (.npz); prints one
+    line ``chip_smoke_gba_child {...}`` with its seconds and its K3-K7
+    launches."""
+    import torch.distributed as dist
+    from motioncheck_ccm_slam_tpu_torch.parallel import sharded_ba as sba
+
+    problem, out, solver, backend, rank, world, store, device, iters, pcg = sys.argv[1:11]
+    rank, world = int(rank), int(world)
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    args = load_gba_problem(problem, device)
+    dist.init_process_group(backend, store=dist.FileStore(store, world), rank=rank,
+                            world_size=world)
+    make = {"tile": sba.make_tile_gba, "gather": sba.make_sharded_gba}[solver]
+    fn = make(iterations=int(iters), pcg_iters=int(pcg), devices=[device],
+              group=dist.group.WORLD)
+    zero_launches(GBA_KERNELS)
+    t0 = time.perf_counter()
+    res = fn(*args)
+    cost = float(res.cost)
+    seconds = time.perf_counter() - t0
+    np.savez(out, Tcw=res.Tcw.cpu().numpy(), Xw=res.Xw.cpu().numpy(),
+             obs_inlier=res.obs_inlier.cpu().numpy(), cost=cost)
+    dist.destroy_process_group()
+    print("chip_smoke_gba_child " + json.dumps({
+        "rank": rank, "seconds": seconds, "launches": read_launches(GBA_KERNELS)}), flush=True)
+
+
+def run_gba_children(problem: str, solver: str, backend: str, world: int, device: str,
+                     iters: int, pcg: int, workdir: str, timeout_s: float) -> list:
+    """Starts ``world`` ``gba_child`` ranks together, each under
+    ``timeout``, waits for all and kills any still running after
+    ``timeout_s`` (the call then fails). Returns each rank's printed
+    record with its saved arrays under "result"."""
+    os.makedirs(workdir, exist_ok=True)
+    store = os.path.join(workdir, f"store_{backend}_{solver}_{world}")
+    if os.path.exists(store):
+        os.remove(store)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    if device == "cpu":
+        env["OMP_NUM_THREADS"] = "1"
+    procs, logs = [], []
+    try:
+        for rank in range(world):
+            out = os.path.join(workdir, f"{backend}_{solver}_rank{rank}.npz")
+            logs.append((open(os.path.join(workdir, f"{backend}_{solver}_rank{rank}.log"), "w+"),
+                         out))
+            procs.append(subprocess.Popen(
+                ["timeout", "-k", "5", str(int(timeout_s)), sys.executable, "-c",
+                 "import chip_smoke; chip_smoke.gba_child()", problem, out, solver, backend,
+                 str(rank), str(world), store, device, str(iters), str(pcg)],
+                cwd=ROOT, env=env, stdout=logs[-1][0], stderr=subprocess.STDOUT,
+                start_new_session=True))
+        t0 = time.perf_counter()
+        while any(p.poll() is None for p in procs):
+            check(time.perf_counter() - t0 < timeout_s + 10,
+                  f"{backend} {solver} ranks still running after {timeout_s} s")
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    recs = []
+    for (f, out), p in zip(logs, procs):
+        f.seek(0)
+        text = f.read()
+        f.close()
+        check(p.returncode == 0, f"a {backend} {solver} rank exited {p.returncode}: "
+              f"{text[-3000:]}")
+        line = [ln for ln in text.splitlines() if ln.startswith("chip_smoke_gba_child ")]
+        check(len(line) == 1, f"a {backend} {solver} rank printed no result: {text[-2000:]}")
+        rec = json.loads(line[0][len("chip_smoke_gba_child "):])
+        with np.load(out) as a:
+            rec["result"] = {k: a[k] for k in a.files}
+        recs.append(rec)
+    return recs
+
+
 def tcp_phase(device, smi: str, extra_args=()) -> dict:
     """Phase 18: ``cli serve --agents 2 --port 0`` and two ``cli agent
     --id {0,1} --frames 36`` at full width, three processes on the one
@@ -2196,6 +2356,279 @@ def tcp_phase(device, smi: str, extra_args=()) -> dict:
     print(f"phase 18 wall seconds on {smi}: " + ", ".join(
         f"{name} {t:.2f}" for name, t in ended.items()))
     print(json.dumps({"tcp": out}))
+    return out
+
+
+def shard_phase(device, smi: str, ctx: dict) -> dict:
+    """Phase 19: the multi-device GBA on the card, from phase 9's perturbed
+    start of bench_gba's problem (``ctx``: its arguments, its one-device
+    result and rates). Returns its results."""
+    from motioncheck_ccm_slam_tpu_torch import entry
+    from motioncheck_ccm_slam_tpu_torch.models import gba as gba_mod
+    from motioncheck_ccm_slam_tpu_torch.parallel import sharded_ba as sba
+
+    args, ref = ctx["args_p"], ctx["res_k"]
+    O = args[2].cam_idx.shape[0]
+    out = {"card": smi, "one_device_iters_per_s_perturbed_start": ctx["iters_per_s_perturbed"],
+           "one_device_iters_per_s_bench_state": ctx["iters_per_s_bench"]}
+
+    def close(label, cost, Tcw, Xw, inlier, to=ref):
+        d = {"cost": float(cost), "cost_rel_diff": abs(float(cost) - float(to.cost))
+             / max(abs(float(to.cost)), 1.0),
+             "Tcw_max_diff": float((torch.as_tensor(Tcw) - to.Tcw.cpu()).abs().max()),
+             "Xw_max_diff": float((torch.as_tensor(Xw) - to.Xw.cpu()).abs().max())}
+        check(np.isfinite(d["cost"]), f"{label}: non-finite cost")
+        check(d["cost_rel_diff"] <= GBA_BOUNDS["cost_rtol"], f"{label}: cost {d}")
+        check(d["Tcw_max_diff"] < GBA_BOUNDS["Tcw_atol"], f"{label}: Tcw {d}")
+        check(d["Xw_max_diff"] < GBA_BOUNDS["Xw_atol"], f"{label}: Xw {d}")
+        check(tuple(np.shape(Xw)) == tuple(to.Xw.shape) and tuple(np.shape(inlier)) == (O,),
+              f"{label}: Xw {tuple(np.shape(Xw))}, inliers {tuple(np.shape(inlier))}")
+        return d
+
+    # (a) n shards of the tile axis in this process, all on this card
+    shard_res = {}
+    for n in (2, 4):
+        fn = sba.make_tile_gba(pcg_iters=25, devices=[device] * n)
+        fn(*args, n_iterations=0)          # the host plan, built once
+        torch.cuda.synchronize()
+        zero_launches(GBA_KERNELS)
+        t0 = time.perf_counter()
+        res = fn(*args, n_iterations=GBA_ITERS)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = read_launches(GBA_KERNELS)
+        d = close(f"{n} shards", res.cost, res.Tcw.cpu(), res.Xw.cpu(), res.obs_inlier)
+        want = {"d1_assemble": n * (1 + GBA_ITERS), "d2_precond": n * GBA_ITERS,
+                "apply_a_raw": n * GBA_ITERS, "apply_b_raw": n * GBA_ITERS}
+        for name, k in want.items():
+            check(launches[name] == k, f"{n} shards: {name} launched {launches[name]}, not {k}")
+        check(launches["s_apply"] % n == 0 and launches["s_apply"] >= n * GBA_ITERS,
+              f"{n} shards: s_apply launched {launches['s_apply']} times")
+        d.update(iters_per_s=GBA_ITERS / dt, sweeps=launches["s_apply"] // n, launches=launches)
+        out[f"shards_{n}"] = d
+        shard_res[n] = res
+        print(f"phase 19 (a) {n} shards on one card: {GBA_ITERS / dt:.4f} LM it/s ({d['sweeps']} "
+              f"PCG sweeps) vs one device {ctx['iters_per_s_perturbed']:.4f} from this start "
+              f"(phase 9) and {ctx['iters_per_s_bench']:.4f} from the bench state (phase 10); "
+              f"cost {d['cost']:.6g} (rel diff {d['cost_rel_diff']:.3g}), |dTcw| "
+              f"{d['Tcw_max_diff']:.3g}, |dXw| {d['Xw_max_diff']:.3g}; launches {launches}")
+
+    # (b) two processes sharing the card over a gloo group, one shard each;
+    # beside them one process in an NCCL group of one, one LM iteration
+    work = os.path.join(ROOT, "build", "chip_smoke_shards")
+    shutil.rmtree(work, ignore_errors=True)
+    one_iter = sba.make_tile_gba(pcg_iters=25)(*args, n_iterations=1)
+    with ThreadPoolExecutor(2) as pool:
+        gloo = pool.submit(run_gba_children, "bench", "tile", "gloo", 2, "cuda:0", GBA_ITERS, 25,
+                           work, SHARD_CHILD_TIMEOUT_S)
+        nccl = pool.submit(run_gba_children, "bench", "tile", "nccl", 1, "cuda:0", 1, 25,
+                           work, SHARD_CHILD_TIMEOUT_S)
+        gloo, nccl = gloo.result(), nccl.result()
+    ref2 = shard_res[2]
+    for rec in gloo:
+        r = rec["result"]
+        rec["vs_two_shards"] = close(f"gloo rank {rec['rank']}", r["cost"], r["Tcw"], r["Xw"],
+                                     r["obs_inlier"], to=ref2)
+    sweeps = [rec["launches"]["s_apply"] for rec in gloo]
+    check(sweeps[0] == sweeps[1], f"the gloo ranks took {sweeps} PCG sweeps")
+    for rec in gloo:
+        check(rec["launches"]["d1_assemble"] == 1 + GBA_ITERS,
+              f"gloo rank {rec['rank']}: launches {rec['launches']}")
+    r = nccl[0]["result"]
+    nccl_d = close("nccl group of one", r["cost"], r["Tcw"], r["Xw"], r["obs_inlier"],
+                   to=one_iter)
+    check(nccl[0]["launches"]["d1_assemble"] == 2 and nccl[0]["launches"]["s_apply"] >= 1,
+          f"nccl: launches {nccl[0]['launches']}")
+    out["gloo_ranks"] = [{k: v for k, v in rec.items() if k != "result"} for rec in gloo]
+    out["nccl_one_rank"] = {**nccl_d, "launches": nccl[0]["launches"],
+                            "seconds": nccl[0]["seconds"]}
+    print(f"phase 19 (b) two gloo processes on one card, one shard each: sweeps {sweeps}, "
+          f"seconds (plan and {GBA_ITERS} LM iterations) "
+          f"{[round(rec['seconds'], 3) for rec in gloo]}; against (a)'s two shards "
+          f"{[rec['vs_two_shards'] for rec in gloo]}; NCCL group of one, one LM iteration: "
+          f"{out['nccl_one_rank']}")
+
+    # (c) the gather formulation over two shards of the observations
+    fn = sba.make_sharded_gba(pcg_iters=25, devices=[device] * 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn(*args, n_iterations=GBA_ITERS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    out["gather_2"] = {**close("gather formulation", res.cost, res.Tcw.cpu(), res.Xw.cpu(),
+                               res.obs_inlier), "iters_per_s": GBA_ITERS / dt}
+    print(f"phase 19 (c) gather formulation over two shards: {GBA_ITERS / dt:.4f} LM it/s "
+          f"(plain torch); against the tile GBA {out['gather_2']}")
+    del fn, res
+
+    # (d) the product GBAJob path on bigmap's maps, sharded over two shards
+    torch.cuda.empty_cache()
+    dry = entry.dryrun_multichip([device] * 2)
+    for label, d in dry.items():
+        check(np.isfinite(d["cost"]) and d["mean_pose_err"] < d["mean_pose_err_start"],
+              f"dryrun_multichip {label}: {d}")
+    out["dryrun_multichip"] = dry
+
+    # (e) the route this machine's product path takes
+    n_dev = torch.cuda.device_count()
+    chosen = gba_mod._pick_solver(2048, 65536, device=device)
+    route = ("mesh" if chosen is gba_mod._solver_cache.get(("mesh", n_dev, 25))
+             else "one-device tile GBA" if chosen is gba_mod._solver_cache.get(25) else "other")
+    check(n_dev > 1 or route == "one-device tile GBA",
+          f"_pick_solver took the {route} route on {n_dev} card(s)")
+    out["pick_solver_route"] = {"cards": n_dev, "route": route}
+    print(f"phase 19 (e) _pick_solver with {n_dev} card(s) visible: {route}")
+    print(json.dumps({"shards": out}))
+    return out
+
+
+def offset_scene(config, offset_y: float, **kw):
+    """tests/test_multi_agent.OffsetScene: utils/synth_scene.SynthScene's
+    world, the camera path moved ``offset_y`` metres along the camera's y
+    axis."""
+    from motioncheck_ccm_slam_tpu_torch.utils.synth_scene import SynthScene
+
+    class OffsetScene(SynthScene):
+        def pose(self, t):
+            T = super().pose(t).copy()
+            T[1, 3] += offset_y
+            return T
+
+    return OffsetScene(config, **kw)
+
+
+def four_agent_config():
+    """Phase 20's configuration: DEFAULT_CONFIG (1024 feature slots, 8
+    levels, client maps 96 x 8192, server maps 2048 x 65,536) on the
+    pinhole camera SynthScene renders (as ``cli synth``), with phase 15's
+    one cut: map matching from keyframe 2, not 30."""
+    import dataclasses
+
+    from motioncheck_ccm_slam_tpu_torch.config import CameraParams, DEFAULT_CONFIG
+
+    return DEFAULT_CONFIG.replace(
+        camera=CameraParams(k1=0.0, k2=0.0, p1=0.0, p2=0.0, k3=0.0),
+        placerec=dataclasses.replace(DEFAULT_CONFIG.placerec,
+                                     start_map_matching_after_kf=MERGE_START_AFTER_KF))
+
+
+def four_agent_phase(device, smi: str) -> dict:
+    """Phase 20: tests/test_four_agents.py's scene on the card at full
+    width: four agents on offset views of one SynthScene world (0.12 m x
+    the client id, 500 points, seed 3, 0.9 m/s), 32 frames each with a
+    server spin after each round, four flush rounds, then FINALBA. Returns
+    its results."""
+    from motioncheck_ccm_slam_tpu_torch.config import DEFAULT_CONFIG, SystemParams
+    from motioncheck_ccm_slam_tpu_torch.models import gba as gba_mod
+    from motioncheck_ccm_slam_tpu_torch.models.tracking import TrackState
+    from motioncheck_ccm_slam_tpu_torch.parallel.comm import ClientComm
+    from motioncheck_ccm_slam_tpu_torch.system.client import ClientSystem
+    from motioncheck_ccm_slam_tpu_torch.system.server import ServerSystem
+    from motioncheck_ccm_slam_tpu_torch.utils.synth_scene import SynthScene
+
+    cfg = four_agent_config()
+    n, cap = FOUR_AGENTS, cfg.capacity
+    print(f"phase 20 four agents: {cfg.camera.width}x{cfg.camera.height}, "
+          f"{cfg.extractor.n_levels} levels, {cfg.extractor.max_features} feature slots, client "
+          f"maps {cap.client_max_kfs} x {cap.client_max_mps}, server maps {cap.server_max_kfs} "
+          f"x {cap.server_max_mps}; the one cut from DEFAULT_CONFIG on the pinhole camera: "
+          f"placerec.start_map_matching_after_kf "
+          f"{DEFAULT_CONFIG.placerec.start_map_matching_after_kf} -> {MERGE_START_AFTER_KF}; "
+          f"{FOUR_AGENT_FRAMES} frames an agent")
+    server = ServerSystem(config=cfg, n_agents=n, device=device)
+    m0 = server.handlers[0].map
+    chosen = gba_mod._pick_solver(m0.nk, m0.nm, device=m0.kf.Tcw.device)
+    check(chosen is not None and chosen.__qualname__.startswith("make_tile_gba"),
+          f"_pick_solver chose {chosen} at server capacity, not the tile-stream GBA")
+    for h in server.handlers.values():
+        h.loop_closer.run_gba_after_loop = False
+    clients, seqs = [], []
+    for cid in range(n):
+        c_cfg = cfg.replace(sys=SystemParams(client_id=cid, n_agents=n))
+        c = ClientSystem(config=c_cfg, device=device)
+        c.comm = ClientComm(config=c_cfg, channel=server.channel_for(cid), client_id=cid)
+        clients.append(c)
+        scene = (SynthScene(c_cfg, n_points=500, seed=3, speed=0.9) if cid == 0
+                 else offset_scene(c_cfg, 0.12 * cid, n_points=500, seed=3, speed=0.9))
+        seqs.append(list(scene.sequence(FOUR_AGENT_FRAMES)))    # rendered on the host first
+    torch.cuda.synchronize()
+    zero_fast_launches()
+    frame_ms = [[] for _ in range(n)]
+    merged_at = []
+    with recorded_gbas() as gbas, timed_calls([(server, "_merge", "merge")]) as parts:
+        for i in range(FOUR_AGENT_FRAMES):
+            for cid, c in enumerate(clients):
+                t, _, img = seqs[cid][i]
+                t0 = time.perf_counter()
+                c.process_image(img, t)
+                torch.cuda.synchronize()
+                frame_ms[cid].append((time.perf_counter() - t0) * 1e3)
+            before = server.n_merges
+            server.spin_once()
+            merged_at += [i] * (server.n_merges - before)
+        launches = fast_launches()
+        for _ in range(4):
+            for c in clients:
+                c.comm.tick(c.map)
+            server.spin_once()
+        n_streaming_gbas = len(gbas)
+        for h in server.handlers.values():
+            h.comm.idle_cycles = 10**9
+            h.comm.got_data = False
+        n_regba = [h.loop_closer.n_regba for h in server.handlers.values()]
+        fired = server.maybe_final_gba()
+        again = server.maybe_final_gba()
+    final_gbas = gbas[n_streaming_gbas:]
+
+    for cid, c in enumerate(clients):
+        check(c.tracker.state == TrackState.OK, f"agent {cid} ends in {c.tracker.state.name}")
+    check(server.n_merges == n - 1, f"{server.n_merges} merges, not {n - 1}")
+    maps = {id(h.map) for h in server.handlers.values()}
+    check(len(maps) == 1, f"the handlers point at {len(maps)} maps")
+    m = server.handlers[0].map
+    cids = {cid for (_, cid) in m.kf_slot_by_id}
+    check(cids == set(range(n)), f"the fused map holds client ids {cids}")
+    check(fired and server.final_gba_done and not again,
+          f"the final GBA fired {fired}, then {again}")
+    check(len(final_gbas) == 1, f"{len(final_gbas)} final GBAs")
+    check(n_regba == [h.loop_closer.n_regba for h in server.handlers.values()],
+          "FINALBA re-armed a loop closer's GBA")
+    streaming = gbas[:n_streaming_gbas]
+    check(len(streaming) == n - 1, f"{len(streaming)} merge GBAs for {server.n_merges} merges")
+    for label, g in [(f"merge GBA {i}", g) for i, g in enumerate(streaming)] + [
+            ("FINALBA", final_gbas[0])]:
+        check(all(g["launches"][k] >= 1 for k in GBA_KERNELS),
+              f"the {label}'s launches {g['launches']}")
+    valid = m.kf.valid.cpu().numpy()
+    cid_arr = m.kf.client_id.cpu().numpy()
+    spans = []
+    for cid in range(n):
+        sel = valid & (cid_arr == cid)
+        check(sel.any(), f"agent {cid} contributed no keyframes")
+        C = np.stack([np.linalg.inv(T)[:3, 3] for T in m.kf.Tcw.cpu().numpy()[sel]])
+        span = C.max(0) - C.min(0)
+        spans.append(span.tolist())
+        check(span[0] > 2 * span[1], f"agent {cid}'s path spans {span}: not the shared x axis")
+    for name, k in launches.items():
+        check(k == n * FOUR_AGENT_FRAMES, f"{name} launched {k} times in {FOUR_AGENT_FRAMES} "
+              f"frames of {n} agents")
+    out = {"card": smi, "n_merges": server.n_merges, "merged_after_frame": merged_at,
+           "merge_s": parts["merge"], "kfs": len(m.kf_slot_by_id), "landmarks": m.n_mps,
+           "client_ids": sorted(cids), "kf_centre_spans": spans, "launches": launches,
+           "frame_ms_median": [statistics.median(v) for v in frame_ms],
+           "final_gba": final_gbas[0], "merge_gbas": streaming}
+    fg = final_gbas[0]
+    print(f"phase 20 four agents: merges after frames {merged_at} ({server.n_merges}), one fused "
+          f"map of {out['kfs']} KFs and {m.n_mps} landmarks with client ids {sorted(cids)}; "
+          f"launches {launches}")
+    print(f"phase 20 times on {smi}: frame medians "
+          + ", ".join(f"{v:.1f}" for v in out["frame_ms_median"])
+          + " ms; merges " + ", ".join(f"{s:.3f}" for s in parts["merge"]) + " s, their GBAs "
+          + ", ".join(f"{g['seconds']:.3f} s (interrupted {g['interrupted']}, launches "
+                      f"{g['launches']})" for g in streaming)
+          + f"; FINALBA once, {fg['seconds']:.3f} s (solver {fg['solver_s']:.3f}, host plan "
+          f"{fg['plan_s']:.3f}, MC {fg['mc_s']:.3f}), launches {fg['launches']}")
+    print(json.dumps({"four_agents": out}))
     return out
 
 
@@ -2439,6 +2872,8 @@ def main() -> None:
     gba_records, ctx = gba_phases(device, smi, schur_log)
     records.update(gba_records)
     records.update(mf_phases(device, smi, ctx))
+    shard_ctx = {k: ctx[k] for k in ("args_p", "res_k", "iters_per_s_perturbed",
+                                     "iters_per_s_bench")}
     del ctx
     CLOCK.start(13)
     driver_phases(device, smi)
@@ -2452,6 +2887,11 @@ def main() -> None:
     cli_phase(device, smi)
     CLOCK.start(18)
     tcp_phase(device, smi)
+    CLOCK.start(19)
+    shard_phase(device, smi, shard_ctx)
+    del shard_ctx
+    CLOCK.start(20)
+    four_agent_phase(device, smi)
     CLOCK.start(None)
     print(json.dumps({"phase_seconds": CLOCK.seconds}))
 

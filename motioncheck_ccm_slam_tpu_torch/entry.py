@@ -11,12 +11,16 @@
 - ``server_gba_entry``: the Motion-Check-gated GBA driver (``run_gba``) on
   a server map at capacity: 4 clients x 512 keyframes x 1024 features,
   65,536 landmarks.
+- ``dryrun_multichip``: the product GBA path (``GBAJob``) with its solver
+  sharded over a list of devices, on ``utils/bigmap``'s server-scale maps,
+  as ``__graft_entry__.dryrun_multichip``.
 
 All run on the card unless the caller asks for another device.
 """
 from __future__ import annotations
 
 import functools
+import time
 import types
 from typing import NamedTuple
 
@@ -79,14 +83,13 @@ def entry(device="cuda"):
     return fn, example_args
 
 
-def gba_problem(device="cuda"):
+def gba_problem(device="cuda", C: int = 2048, L: int = 65536, obs_per_cam: int = 1000):
     """``bench_gba``'s problem (Tcw, Xw, obs, K, fixed_cam, fixed_lm),
     camera 0 fixed, from the same ``np.random.default_rng(7)`` draws in the
-    same order; observations are camera-major (1000 a camera)."""
+    same order; observations are camera-major (``obs_per_cam`` a camera).
+    The defaults are bench_gba's sizes; other sizes draw the same way."""
     device = torch.device(device)
     rng = np.random.default_rng(7)
-    C, L = 2048, 65536
-    obs_per_cam = 1000
     O = C * obs_per_cam
     pts = rng.uniform(-8, 8, (L, 3)).astype(np.float32)
     pts[:, 2] = np.abs(pts[:, 2]) + 4.0
@@ -290,3 +293,72 @@ def server_gba_entry(device="cuda", seed: int = 0):
     from ``server_scene(seed)`` and ``SERVER_CONFIG``. ``_pick_solver``
     routes a map of this size to the tile-stream GBA."""
     return gba.run_gba, (server_map(server_scene(seed), device), SERVER_CONFIG)
+
+
+# ---------------------------------------------------------------------------
+# The multi-device dry run
+# ---------------------------------------------------------------------------
+
+DRYRUN_ITERS = 20      # the reference's GBA iterations (config.yaml:129)
+DRYRUN_SMALL = dict(n_kfs=256, n_mps=8192, obs_per_kf=256)
+DRYRUN_FULL = dict(n_kfs=1024, n_mps=32768, obs_per_kf=1024)
+
+
+def dryrun_multichip(devices) -> dict:
+    """The product full-map GBA path (``GBAJob``, as ``ServerSystem``'s
+    final GBA runs it: 20 LM iterations in chunks of 5, Motion Check off)
+    on ``utils/bigmap`` maps, with the solver sharded over ``devices``
+    (the map on the first). Three legs, as ``__graft_entry__.
+    dryrun_multichip``'s: the tile GBA over ``devices`` and on one device
+    at ``DRYRUN_SMALL``'s scale, and the gather formulation over
+    ``devices`` at ``DRYRUN_FULL``'s. Prints each leg's LM iterations/s (after the first
+    chunk), final cost and mean pose error; raises on a non-finite cost.
+    Returns label -> {"lm_iters_per_s", "cost", "mean_pose_err",
+    "mean_pose_err_start"}."""
+    from .utils import bigmap
+
+    devices = [torch.device(d) for d in devices]
+    dev = devices[0]
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def run(solver, label, n_kfs, n_mps, obs_per_kf):
+        m, cfg, Tcw_true = bigmap.build_server_scale_map(
+            n_kfs=n_kfs, n_mps=n_mps, obs_per_kf=obs_per_kf, seed=0, device=dev)
+
+        def pose_err():
+            C = m.kf.Tcw[:n_kfs].cpu().numpy()
+            return float(np.mean(np.linalg.norm(C[:, :3, 3] - Tcw_true[:, :3, 3], axis=-1)))
+
+        err0 = pose_err()
+        job = gba.GBAJob(m=m, config=cfg, iterations=DRYRUN_ITERS, enable_motion_check=False,
+                         chunk=5, solver=solver)
+        job.step()          # the first chunk: the host plan and 5 iterations
+        sync()
+        t0 = time.perf_counter()
+        while not job.step():
+            pass
+        sync()
+        dt = time.perf_counter() - t0
+        job.finalize()
+        out = {"lm_iters_per_s": (DRYRUN_ITERS - 5) / dt, "cost": job._cost,
+               "mean_pose_err": pose_err(), "mean_pose_err_start": err0}
+        if not np.isfinite(job._cost):
+            raise RuntimeError(f"dryrun_multichip {label}: non-finite GBA cost")
+        print(f"dryrun_multichip {label}: C={n_kfs} L={n_mps} O={n_kfs * obs_per_kf} "
+              f"iters={DRYRUN_ITERS} lm_iters_per_s={out['lm_iters_per_s']:.3f} "
+              f"cost={job._cost:.1f} mean_pose_err={out['mean_pose_err']:.4f} "
+              f"(start {err0:.4f})")
+        return out
+
+    n = len(devices)
+    return {
+        f"tile[{n}]": run(sharded_ba.make_tile_gba(pcg_iters=25, devices=devices),
+                          f"tile over {n} devices", **DRYRUN_SMALL),
+        "tile[1]": run(sharded_ba.make_tile_gba(pcg_iters=25), "tile on one device",
+                       **DRYRUN_SMALL),
+        f"gather[{n}]": run(sharded_ba.make_sharded_gba(pcg_iters=25, devices=devices),
+                            f"gather formulation over {n} devices", **DRYRUN_FULL),
+    }

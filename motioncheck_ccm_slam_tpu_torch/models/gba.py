@@ -17,9 +17,10 @@ the map's tensors, so nothing written to the map while the job runs (in
 place or not) reaches them, and an aborted job leaves the map bit for bit
 as it was.
 
-On one device the solver is the dense-W ``local_ba.bundle_adjust`` while
-its W fits, else the tile-stream ``parallel/sharded_ba.make_tile_gba``.
-The multi-device mesh route is not part of the port yet.
+The solver is the dense-W ``local_ba.bundle_adjust`` while its W fits.
+Above that it is the tile-stream ``parallel/sharded_ba.make_tile_gba``:
+sharded over every card when the map lies on a card and more than one is
+visible (no configuration, as the JAX package's mesh), else on one device.
 """
 from __future__ import annotations
 
@@ -54,15 +55,31 @@ DENSE_W_MAX_BYTES = 256 * 2 ** 20
 _solver_cache: dict = {}
 
 
-def _pick_solver(C: int, L: int, pcg_iters: int = 25):
-    """Solver selection on one device: None -> the dense-W local_ba path
-    when the dense Schur complement fits; else the tile-stream GBA, whose
-    plan always exists, so it needs no fallback."""
+def _pick_solver(C: int, L: int, pcg_iters: int = 25, device=None):
+    """Solver selection for the product GBA path.
+
+    None -> the dense-W local_ba path while the dense Schur complement fits.
+    Above that, a map on a CUDA ``device`` with more than one card visible
+    takes the tile GBA with its tiles sharded over cards 0 .. n-1, the
+    counterpart of the reference's multi-threaded MapFusionGBA
+    (src/Optimizer.cpp:646, initMultiThreading :792) and of the JAX
+    package's mesh route; any other map the one-device tile GBA, whose plan
+    always exists, so it needs no fallback. The JAX package takes its mesh
+    before the dense-W test; here a map small enough for dense W stays on
+    one device, since a shard adds its own launches and a host sum a sweep.
+    Solvers are cached by route and ``pcg_iters``."""
+    from ..parallel import sharded_ba
+
     if 6 * C * 3 * L * 4 <= DENSE_W_MAX_BYTES:
         return None
+    n_dev = torch.cuda.device_count()
+    if device is not None and torch.device(device).type == "cuda" and n_dev > 1:
+        key = ("mesh", n_dev, pcg_iters)
+        if key not in _solver_cache:
+            _solver_cache[key] = sharded_ba.make_tile_gba(
+                pcg_iters=pcg_iters, devices=[torch.device("cuda", i) for i in range(n_dev)])
+        return _solver_cache[key]
     if pcg_iters not in _solver_cache:
-        from ..parallel import sharded_ba
-
         _solver_cache[pcg_iters] = sharded_ba.make_tile_gba(pcg_iters=pcg_iters)
     return _solver_cache[pcg_iters]
 
@@ -134,7 +151,8 @@ class GBAJob:
         self.fixed_j = torch.from_numpy(fixed).to(dev)
         self.fixed_lm = ~m.mp.valid
         if self.solver is None:
-            self.solver = _pick_solver(int(m.kf.Tcw.shape[0]), int(m.mp.Xw.shape[0]))
+            self.solver = _pick_solver(int(m.kf.Tcw.shape[0]), int(m.mp.Xw.shape[0]),
+                                       device=dev)
         self.Tcw = self.Tcw_snapshot.clone()
         self.Xw = self.Xw_snapshot.clone()
 

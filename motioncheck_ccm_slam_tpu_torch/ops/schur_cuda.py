@@ -86,14 +86,18 @@ class SchurPlan(NamedTuple):
                              lmloc=t(self.lmloc, torch.int32))
 
 
-def build_schur_plan(lm_sorted, cam_sorted, L: int, valid_sorted=None) -> SchurPlan:
+def build_schur_plan(lm_sorted, cam_sorted, L: int, valid_sorted=None,
+                     lpad_multiple: int = 1) -> SchurPlan:
     """Numpy copy of the JAX package's plan builder.
 
     lm_sorted: (O,) landmark id per sorted-stream position (nondecreasing);
     cam_sorted: (O,) camera id per sorted position; valid_sorted: optional
     (O,) bool: invalid observations are left out of the plan (their weights
-    are zero). The kernels loop over a tile's slots, so no tile width is
-    too wide and the plan always exists.
+    are zero). ``lpad_multiple``: L_pad is a multiple of LM_BLOCK *
+    lpad_multiple, so that the tiles split into that many equal contiguous
+    ranges (one a shard); with 1 the plan is the one-device plan. The
+    kernels loop over a tile's slots, so no tile width is too wide and the
+    plan always exists.
     """
     lm_sorted = np.asarray(lm_sorted, np.int64)
     cam_sorted = np.asarray(cam_sorted, np.int64)
@@ -104,7 +108,7 @@ def build_schur_plan(lm_sorted, cam_sorted, L: int, valid_sorted=None) -> SchurP
         keep = np.arange(O, dtype=np.int64)
     lm_k = lm_sorted[keep]
     cam_k = cam_sorted[keep]
-    L_pad = _round_up(max(L, 1), LM_BLOCK)
+    L_pad = _round_up(max(L, 1), LM_BLOCK * max(lpad_multiple, 1))
     ntl = L_pad // LM_BLOCK
     counts = np.bincount(lm_k, minlength=L_pad)
     bounds = np.zeros(L_pad + 1, np.int64)

@@ -1,13 +1,24 @@
-"""Matrix-free global bundle adjustment on one device.
+"""Matrix-free global bundle adjustment, on one device or over shards.
 
-Counterpart of the single-device part of
-``motioncheck_ccm_slam_tpu/parallel/sharded_ba.py``: the server's GBA at
-scale, the replacement for g2o's ``MapFusionGBA`` (reference
-src/Optimizer.cpp:646). Two solvers:
+Counterpart of ``motioncheck_ccm_slam_tpu/parallel/sharded_ba.py``: the
+server's GBA at scale, the replacement for g2o's ``MapFusionGBA`` and its
+OpenMP threads (reference src/Optimizer.cpp:646, initMultiThreading :792).
+Three solvers:
 
-- ``make_tile_gba``: the tile-stream GBA (kernels K3-K7), below;
-- ``make_matrix_free_gba``: the dual-layout solver (K9 and the plan-form
-  Schur products), at the end of the module.
+- ``make_tile_gba``: the tile-stream GBA (kernels K3-K7), on one device or
+  with the landmark-tile axis split over shards (``Shards``: devices of
+  this process, and ranks of a ``torch.distributed`` group);
+- ``make_sharded_gba``: the gather formulation (plain torch, no kernel),
+  with the observation axis split over shards;
+- ``make_matrix_free_gba``: the dual-layout solver on one device (K9 and
+  the plan-form Schur products), at the end of the module.
+
+**Shards.** The counterpart of the JAX package's 1-D mesh: a shard is a
+device plus an equal contiguous range of the work axis. Camera-side
+quantities live on the first local device and the shards' camera-side
+partials are summed there in shard order, then over the group (``psum``'s
+counterpart, deterministic: no atomics across shards); the landmark side
+stays on its shard.
 
 **The tile-stream GBA.**
 
@@ -38,11 +49,9 @@ materialises the tile stream's R, t and X, every PCG product is one
 ``schur_apply``, br one ``apply_b`` and the back-substitution one
 ``apply_a``.
 
-Left out, as TPU routing: the multi-device mesh, the gather/cumsum
-formulation of the Schur product and the ``MCSLAM_PALLAS_*`` /
-``MCSLAM_TILE_GBA`` / ``PALLAS_SCHUR_MIN_CAMS`` switches that choose
-between them (tile padding pays off only on a TPU at scale); the port has
-one route per solver.
+Left out, as TPU routing: the ``MCSLAM_PALLAS_*`` / ``MCSLAM_TILE_GBA`` /
+``PALLAS_SCHUR_MIN_CAMS`` switches and ``make_tile_gba``'s ``fallback``
+(the port's tile plan always exists); the caller picks a solver.
 """
 from __future__ import annotations
 
@@ -50,6 +59,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..ops import schur_cuda
 from ..solvers import ba_core
@@ -75,12 +85,14 @@ def _ew_rtol(gnorm, g0, n_cams: int):
     return torch.clamp(torch.sqrt(ratio), EW_FLOOR, EW_MAX)
 
 
-def _pcg(matvec, b, M_inv_blocks, iters: int, rtol=1e-5):
+def _pcg(matvec, b, M_inv_blocks, iters: int, rtol=1e-5, decide=bool):
     """Block-Jacobi preconditioned CG on the (C, 6) camera system.
 
     At most ``iters`` sweeps; stops once the preconditioned residual r.z
     drops below rtol^2 * (r0.z0). ``rtol`` may be a 0-d tensor. The exit
-    test reads one scalar to the host per sweep.
+    test reads one scalar to the host per sweep, through ``decide`` (a
+    0-d bool tensor -> bool): ``Shards.all_true`` over a process group, so
+    that every rank takes the same number of sweeps.
     """
 
     def precond(r):
@@ -94,7 +106,7 @@ def _pcg(matvec, b, M_inv_blocks, iters: int, rtol=1e-5):
     thresh = (rtol * rtol) * rz
     one = torch.ones_like(rz)
     i = 0
-    while i < iters and bool(rz > thresh):
+    while i < iters and decide(rz > thresh):
         Ap = matvec(p)
         pAp = torch.sum(p * Ap)
         alpha = rz / torch.where(torch.abs(pAp) < 1e-12, one, pAp)
@@ -108,6 +120,275 @@ def _pcg(matvec, b, M_inv_blocks, iters: int, rtol=1e-5):
         i += 1
     return x
 
+
+# ---------------------------------------------------------------------------
+# Shards: the counterpart of the JAX package's 1-D device mesh
+# ---------------------------------------------------------------------------
+
+class Shards:
+    """The shards of a sharded GBA and the reduction between them.
+
+    A shard is a device plus one of ``n`` equal contiguous ranges of a work
+    axis: landmark tiles (the tile GBA) or observations (the gather
+    formulation). This process holds the local shards, one a device of
+    ``devices`` (a device may hold several); with a ``torch.distributed``
+    group every rank holds as many, and rank r's are the global shards
+    [r * len(devices), (r + 1) * len(devices)). One process driving all
+    shards is the counterpart of JAX's single-controller ``shard_map``, one
+    process a shard that of its multi-controller mesh.
+
+    Camera-side quantities (poses, the (C, 6) PCG state, Hcc and every
+    product) live on the first local device, ``home``: ``reduce`` sums the
+    shards' camera-side partials there in shard order (then over the
+    group), the counterpart of ``psum``; ``replicate`` hands a home tensor
+    to each shard's device. The landmark side stays on its shard. With one
+    local shard and no group both are the identity.
+    """
+
+    def __init__(self, devices, group=None):
+        if not devices:
+            raise ValueError("Shards: no device")
+        self.devices = [_device(d) for d in devices]
+        self.home = self.devices[0]
+        self.group = group
+        self.world = 1 if group is None else dist.get_world_size(group)
+        rank = 0 if group is None else dist.get_rank(group)
+        self.first = rank * len(self.devices)
+        self.n = self.world * len(self.devices)
+
+    def ranges(self, total: int):
+        """The local shards' (start, stop) of an axis of ``total`` entries,
+        a multiple of ``n``."""
+        if total % self.n:
+            raise ValueError(f"Shards: {total} entries do not split into {self.n} shards")
+        part = total // self.n
+        return [((self.first + k) * part, (self.first + k + 1) * part)
+                for k in range(len(self.devices))]
+
+    def reduce(self, partials):
+        """The sum of the local shards' partials on ``home``, added in
+        shard order, then summed over the group. May reuse the first
+        partial's storage."""
+        acc = partials[0].to(self.home)
+        for p in partials[1:]:
+            acc = acc + p.to(self.home)
+        if self.group is not None:
+            dist.all_reduce(acc, group=self.group)
+        return acc
+
+    def replicate(self, x):
+        """A home tensor on each local shard's device (no copy where that
+        device is home)."""
+        return [x.to(d) for d in self.devices]
+
+    def all_true(self, flag) -> bool:
+        """A 0-d bool tensor's value that every rank agrees on: True only
+        where it is True on every rank (summed over the group)."""
+        if self.group is None:
+            return bool(flag)
+        n = flag.to(torch.int32).reshape(1)
+        dist.all_reduce(n, group=self.group)
+        return int(n) == self.world
+
+    def gather(self, parts, total: int):
+        """The local shards' parts (each rows ``ranges(total)[k]`` of an
+        axis of ``total`` rows) as one tensor of all ``total`` rows on
+        home; over a group, summed into zeros (exact: every row has one
+        non-zero writer)."""
+        if self.group is None and len(parts) == 1:
+            return parts[0]
+        if self.group is None:
+            return torch.cat([p.to(self.home) for p in parts])
+        dtype = parts[0].dtype
+        full = torch.zeros((total,) + tuple(parts[0].shape[1:]), device=self.home,
+                           dtype=torch.int32 if dtype == torch.bool else dtype)
+        for (a, b), p in zip(self.ranges(total), parts):
+            full[a:b] = p.to(self.home)
+        dist.all_reduce(full, group=self.group)
+        return full.bool() if dtype == torch.bool else full
+
+
+def _device(d) -> torch.device:
+    """``d`` as a torch.device with its index ("cuda" -> the current card)."""
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def _shards(devices, group, default_device) -> Shards:
+    return Shards(list(devices) if devices else [default_device], group)
+
+
+# ---------------------------------------------------------------------------
+# The gather formulation over shards of the observation axis
+# ---------------------------------------------------------------------------
+
+def _pad_obs(obs: ba_core.BAObservations, n_dev: int) -> ba_core.BAObservations:
+    """Observations padded with invalid entries (camera 0, landmark 0) to a
+    multiple of ``n_dev``."""
+    O = obs.cam_idx.shape[0]
+    pad = (-O) % n_dev
+    if pad == 0:
+        return obs
+    return ba_core.BAObservations(*[
+        torch.cat([a, torch.zeros((pad,) + tuple(a.shape[1:]), dtype=a.dtype, device=a.device)])
+        for a in obs])
+
+
+def _schur_matvec(v, Hcc_d, Hll_inv, Wcls, obs_shards, C: int, L: int, sh: Shards):
+    """S v for the reduced camera system: v (C, 6) on home; per shard two
+    gather / scatter-add sweeps over its observations (Wcls[k] (O_k, 6,
+    3)), each reduced over the shards."""
+    Hv = torch.einsum("cij,cj->ci", Hcc_d, v)
+    # u_l = sum_obs Wcl^T v[cam] -> (L, 3)
+    u = sh.reduce([
+        ba_core._scatter_sum(o.lm_idx, torch.einsum("oij,oi->oj", W, vk[o.cam_idx]), L)
+        for o, W, vk in zip(obs_shards, Wcls, sh.replicate(v))])
+    u = torch.einsum("lij,lj->li", Hll_inv, u)
+    # w_c = sum_obs Wcl u[lm] -> (C, 6)
+    w = sh.reduce([
+        ba_core._scatter_sum(o.cam_idx, torch.einsum("oij,oj->oi", W, uk[o.lm_idx]), C)
+        for o, W, uk in zip(obs_shards, Wcls, sh.replicate(u))])
+    return Hv - w
+
+
+def _gba_iteration(state, obs_shards, K, fixed_cam, fixed_lm, C: int, L: int, pcg_iters: int,
+                   sh: Shards):
+    """One LM iteration of the gather formulation. Poses and landmarks are
+    replicated: each shard linearises its observations (residuals,
+    Jacobians, scatter sums), the blocks Hcc, bc, Hll, bl are reduced and
+    the damped system is formed on home. Returns (state, cost of the
+    candidate)."""
+    Tcw, Xw, lam, g0 = state
+    dev, dt = Tcw.device, Tcw.dtype
+    Ts, Xs, Ks = sh.replicate(Tcw), sh.replicate(Xw), sh.replicate(K)
+    fcs, fls = sh.replicate(fixed_cam), sh.replicate(fixed_lm)
+    costs, blocks, Wcls = [], [], []
+    for o, Tk, Xk, Kk, fck, flk in zip(obs_shards, Ts, Xs, Ks, fcs, fls):
+        r, pc, depth_ok = ba_core.reproject_residuals(Tk, Xk, o, Kk)
+        w, chi2 = ba_core.robust_obs_weights(r, o, depth_ok)
+        costs.append(_robust_cost(chi2, o.valid))
+        Jc, Jl = ba_core.reproject_jacobians(pc, Tk[o.cam_idx][:, :3, :3], Kk)
+        Hcc_k, bc_k, Hll_k, bl_k, W = ba_core.assemble_blocks(
+            Jc, Jl, r, w, o.cam_idx, o.lm_idx, C, L)
+        blocks.append((Hcc_k, bc_k, Hll_k, bl_k))
+        free = ~(fck[o.cam_idx] | flk[o.lm_idx])
+        Wcls.append(torch.where(free[:, None, None], W, torch.zeros_like(W)))
+    cost = sh.reduce(costs)
+    Hcc, bc, Hll, bl = (sh.reduce([b[i] for b in blocks]) for i in range(4))
+
+    eye6 = torch.eye(6, dtype=dt, device=dev)
+    Hcc_d = ba_core.damp_blocks(Hcc, lam)
+    Hcc_d = torch.where(fixed_cam[:, None, None], eye6, Hcc_d)
+    bc = torch.where(fixed_cam[:, None], torch.zeros_like(bc), bc)
+    Hll_d = ba_core.damp_blocks(Hll, lam)
+    Hll_d = torch.where(fixed_lm[:, None, None], torch.eye(3, dtype=dt, device=dev), Hll_d)
+    bl = torch.where(fixed_lm[:, None], torch.zeros_like(bl), bl)
+    Hll_inv = ba_core.inv33(Hll_d)
+    Hinvs = sh.replicate(Hll_inv)
+
+    # reduced RHS: br = bc - W Hll^-1 bl
+    u = torch.einsum("lij,lj->li", Hll_inv, bl)
+    Wu = sh.reduce([
+        ba_core._scatter_sum(o.cam_idx, torch.einsum("oij,oj->oi", W, uk[o.lm_idx]), C)
+        for o, W, uk in zip(obs_shards, Wcls, sh.replicate(u))])
+    br = bc - Wu
+
+    def matvec(v):
+        return _schur_matvec(v, Hcc_d, Hll_inv, Wcls, obs_shards, C, L, sh)
+
+    # block-Jacobi on the true Schur diagonal
+    S_obs = []
+    for o, W, Hk in zip(obs_shards, Wcls, Hinvs):
+        WG = torch.einsum("oij,ojk->oik", W, Hk[o.lm_idx])
+        S_obs.append(ba_core._scatter_sum(o.cam_idx, torch.einsum("oik,ojk->oij", WG, W), C))
+    S_diag = Hcc_d - sh.reduce(S_obs)
+    M_inv = ba_core.inv66_spd(S_diag + 1e-6 * eye6)
+    gnorm = torch.linalg.norm(br)
+    g0 = torch.where(g0 > 0, g0, gnorm)
+    dc = _pcg(matvec, br, M_inv, pcg_iters, rtol=_ew_rtol(gnorm, g0, C), decide=sh.all_true)
+    dc = torch.where(fixed_cam[:, None], torch.zeros_like(dc), dc)
+    # back-substitute landmarks: dl = Hll^-1 (bl - W^T dc)
+    Wt_dc = sh.reduce([
+        ba_core._scatter_sum(o.lm_idx, torch.einsum("oij,oi->oj", W, dk[o.cam_idx]), L)
+        for o, W, dk in zip(obs_shards, Wcls, sh.replicate(dc))])
+    dl = torch.einsum("lij,lj->li", Hll_inv, bl - Wt_dc)
+    dl = torch.where(fixed_lm[:, None], torch.zeros_like(dl), dl)
+
+    T_new = ba_core.apply_pose_update(Tcw, dc, mask=~fixed_cam)
+    X_new = Xw + dl
+    costs_new = []
+    for o, Tk, Xk, Kk in zip(obs_shards, sh.replicate(T_new), sh.replicate(X_new), Ks):
+        r2, _, _ = ba_core.reproject_residuals(Tk, Xk, o, Kk)
+        costs_new.append(_robust_cost(torch.sum(r2 * r2, -1) * o.inv_sigma2, o.valid))
+    cost_new = sh.reduce(costs_new)
+    accept = cost_new < cost
+    state = (torch.where(accept, T_new, Tcw), torch.where(accept, X_new, Xw),
+             torch.where(accept, torch.clamp_min(lam * 0.5, 1e-8),
+                         torch.clamp_max(lam * 4.0, 1e4)),
+             g0)
+    return state, cost_new
+
+
+def _gba_body(Tcw, Xw, K, fixed_cam, fixed_lm, n_iters: int, obs_shards, pcg_iters: int,
+              sh: Shards):
+    """n_iters LM iterations and the final inlier classification on the
+    local observation shards. Returns (Tcw, Xw, inlier per local shard,
+    cost)."""
+    C, L = Tcw.shape[0], Xw.shape[0]
+    state = (Tcw, Xw, torch.tensor(1e-4, dtype=torch.float32, device=Tcw.device),
+             torch.tensor(-1.0, dtype=torch.float32, device=Tcw.device))
+    for _ in range(n_iters):
+        state, _cost = _gba_iteration(state, obs_shards, K, fixed_cam, fixed_lm, C, L,
+                                      pcg_iters, sh)
+    Tcw, Xw = state[0], state[1]
+    inliers, costs = [], []
+    for o, Tk, Xk, Kk in zip(obs_shards, sh.replicate(Tcw), sh.replicate(Xw), sh.replicate(K)):
+        r, _, depth_ok = ba_core.reproject_residuals(Tk, Xk, o, Kk)
+        chi2 = torch.sum(r * r, -1) * o.inv_sigma2
+        inlier = o.valid & (chi2 <= ba_core.CHI2_MONO) & depth_ok
+        inliers.append(inlier)
+        costs.append(_robust_cost(chi2, inlier))
+    return Tcw, Xw, inliers, sh.reduce(costs)
+
+
+def make_sharded_gba(iterations: int = 5, pcg_iters: int = 25, devices=None, group=None):
+    """The gather formulation of the GBA over shards of the observation
+    axis (the JAX package's ``make_sharded_gba``).
+
+    Returns ``gba(Tcw, Xw, obs, K, fixed_cam, fixed_lm, n_iterations=None)
+    -> BAResult``. The observations are padded to a multiple of the shard
+    count and split into equal contiguous ranges, one a shard (``devices``
+    and ``group`` as for ``Shards``; None: one shard on the observations'
+    device). Plain torch: no kernel. The tile plan of ``make_tile_gba``
+    always exists, so nothing routes here; it is reached by an explicit
+    call. Every rank of a group returns the full result.
+    """
+
+    def gba(Tcw, Xw, obs: ba_core.BAObservations, K, fixed_cam, fixed_lm,
+            n_iterations=None) -> BAResult:
+        dev_in = Tcw.device
+        sh = _shards(devices, group, obs.cam_idx.device)
+        n_it = iterations if n_iterations is None else int(n_iterations)
+        O = obs.cam_idx.shape[0]
+        obs_p = _pad_obs(obs, sh.n)
+        obs_shards = [ba_core.BAObservations(*[a[s0:s1].to(d) for a in obs_p])
+                      for (s0, s1), d in zip(sh.ranges(obs_p.cam_idx.shape[0]), sh.devices)]
+        h = sh.home
+        Tcw_o, Xw_o, inliers, cost = _gba_body(
+            Tcw.to(h), Xw.to(h), K.to(h), fixed_cam.to(h), fixed_lm.to(h), n_it, obs_shards,
+            pcg_iters, sh)
+        inlier = sh.gather(inliers, obs_p.cam_idx.shape[0])[:O]
+        return BAResult(Tcw=Tcw_o.to(dev_in), Xw=Xw_o.to(dev_in), obs_inlier=inlier.to(dev_in),
+                        cost=cost.to(dev_in))
+
+    return gba
+
+
+# ---------------------------------------------------------------------------
+# The tile-stream GBA over shards of the tile axis
+# ---------------------------------------------------------------------------
 
 class TilePlan(NamedTuple):
     """A SchurPlan's slot streams on the device, with the maps between
@@ -123,10 +404,13 @@ class TilePlan(NamedTuple):
     lm_p: torch.Tensor     # (OP,) i64 global landmark id per slot
 
 
-def build_tile_plan(obs: ba_core.BAObservations, C: int, L: int) -> TilePlan:
+def build_tile_plan(obs: ba_core.BAObservations, C: int, L: int,
+                    n_shards: int = 1) -> TilePlan:
     """Host-side tile plan for any observation stream, placed on the
-    observations' device. Raises on a valid observation whose camera or
-    landmark index is out of range (the kernels index with them)."""
+    observations' device; L_pad a multiple of 128 * ``n_shards``, so that
+    the tiles split into ``n_shards`` equal ranges. Raises on a valid
+    observation whose camera or landmark index is out of range (the kernels
+    index with them)."""
     lm_np = obs.lm_idx.cpu().numpy().astype(np.int64)
     cam_np = obs.cam_idx.cpu().numpy().astype(np.int64)
     valid_np = obs.valid.cpu().numpy().astype(bool)
@@ -137,7 +421,7 @@ def build_tile_plan(obs: ba_core.BAObservations, C: int, L: int) -> TilePlan:
     O = lm_np.shape[0]
     order = np.argsort(lm_np, kind="stable")
     sp = schur_cuda.build_schur_plan(lm_np[order], cam_np[order], L,
-                                     valid_sorted=valid_np[order])
+                                     valid_sorted=valid_np[order], lpad_multiple=n_shards)
     to_orig = np.append(order, O)[sp.perm]
     real = to_orig < O
     slot_of = np.zeros(O, np.int64)
@@ -180,117 +464,170 @@ def tile_streams(tp: TilePlan, obs: ba_core.BAObservations, K, fixed_cam,
                        kp=kp.contiguous())
 
 
-def _tile_linearize(Tcw, Xw_pad, tp: TilePlan, st: TileStreams):
-    """One K3 pass at (Tcw, Xw): the full linearisation (W stream, aux
-    rows, landmark Hll+bl, camera Hcc+bc) plus the exact robust cost."""
-    W18, aux, hllbl, cam27 = schur_cuda.d1_assemble(
-        tp.camid, tp.lmloc, st.uv, st.is2, st.valid, st.free, st.kp,
-        schur_cuda.pose_table(Tcw), Xw_pad.contiguous(), TP=tp.TP)
-    return W18, aux, hllbl, cam27, torch.sum(aux[0])
+def shard_tile_plan(tp: TilePlan, st: TileStreams, tiles, device):
+    """The plan and streams of the tiles [tiles[0], tiles[1]) on
+    ``device``: the slot streams' contiguous ranges (whole tiles, so each
+    starts 16-byte aligned). The shard's plan holds what the kernels read;
+    the maps to and from the observation order stay with the whole plan."""
+    t0, t1 = tiles
+    s0, s1 = t0 * tp.TP, t1 * tp.TP
+
+    def cut(a):
+        return a[s0:s1].to(device)
+
+    plan = TilePlan(ntl=t1 - t0, TP=tp.TP, L_pad=(t1 - t0) * schur_cuda.LM_BLOCK,
+                    camid=cut(tp.camid), lmloc=cut(tp.lmloc), to_orig=None, slot_of=None,
+                    lm_p=None)
+    return plan, TileStreams(uv=cut(st.uv), is2=cut(st.is2), valid=cut(st.valid),
+                             free=cut(st.free), kp=st.kp.to(device))
 
 
-def _tile_iteration(state, fixed_cam, fixed_lm_pad, pcg_iters: int,
-                    tp: TilePlan, st: TileStreams):
-    """One LM iteration on the tile stream. The state carries the
-    linearisation of the carried (Tcw, Xw); the candidate's K3 pass both
-    prices the step and, if it is accepted, becomes the next linearisation.
-    Returns (state, cost of the candidate)."""
-    Tcw, Xw, lam, g0, W18, aux3, hllbl, cam27, cost = state
-    C, L_pad, TP = Tcw.shape[0], tp.L_pad, tp.TP
+def _tile_linearize(Tcw, Xw_locs, plans, streams, sh: Shards):
+    """One K3 pass on each shard at (Tcw, Xw): per shard the W stream, aux
+    rows and landmark Hll+bl; the reduced camera Hcc+bc and the exact
+    robust cost of the state."""
+    outs = [schur_cuda.d1_assemble(tp.camid, tp.lmloc, st.uv, st.is2, st.valid, st.free,
+                                   st.kp, pose, X.contiguous(), TP=tp.TP)
+            for tp, st, pose, X in zip(plans, streams,
+                                       sh.replicate(schur_cuda.pose_table(Tcw)), Xw_locs)]
+    cam27 = sh.reduce([o[3] for o in outs])
+    cost = sh.reduce([torch.sum(o[1][0]) for o in outs])
+    return [o[0] for o in outs], [o[1] for o in outs], [o[2] for o in outs], cam27, cost
+
+
+def _tile_iteration(state, fixed_cam, fixed_lm_locs, pcg_iters: int, plans, streams,
+                    sh: Shards):
+    """One LM iteration on the tile streams. The state carries the
+    linearisation of the carried (Tcw, Xw): per shard its landmarks, W,
+    aux and Hll+bl; on home Tcw, lam, g0, the reduced cam27 and cost. The
+    candidate's K3 pass both prices the step and, if it is accepted,
+    becomes the next linearisation. Returns (state, cost of the
+    candidate)."""
+    Tcw, Xws, lam, g0, W18s, aux3s, hllbls, cam27, cost = state
+    C = Tcw.shape[0]
     dev, dt = Tcw.device, Tcw.dtype
     Hcc = schur_cuda.sym6_from_tri(cam27[:, :21])
     bc = cam27[:, 21:]
-    Hll = hllbl[0:9].T.reshape(L_pad, 3, 3)
-    bl = hllbl[9:12].T
-
     eye6 = torch.eye(6, dtype=dt, device=dev)
     Hcc_d = ba_core.damp_blocks(Hcc, lam)
     Hcc_d = torch.where(fixed_cam[:, None, None], eye6, Hcc_d)
     bc = torch.where(fixed_cam[:, None], torch.zeros_like(bc), bc)
-    Hll_d = ba_core.damp_blocks(Hll, lam)
-    Hll_d = torch.where(fixed_lm_pad[:, None, None], torch.eye(3, dtype=dt, device=dev), Hll_d)
-    bl = torch.where(fixed_lm_pad[:, None], torch.zeros_like(bl), bl)
-    Hll_inv = ba_core.inv33(Hll_d)
-    H9 = Hll_inv.reshape(L_pad, 9).T.contiguous()              # (9, L_pad)
+
+    # landmark side, shard by shard: damped blocks inverted in closed form
+    u0s, H9s = [], []
+    for tp, hllbl, flk, lamk in zip(plans, hllbls, fixed_lm_locs, sh.replicate(lam)):
+        Hll = hllbl[0:9].T.reshape(tp.L_pad, 3, 3)
+        bl = hllbl[9:12].T
+        Hll_d = ba_core.damp_blocks(Hll, lamk)
+        Hll_d = torch.where(flk[:, None, None], torch.eye(3, dtype=dt, device=flk.device), Hll_d)
+        bl = torch.where(flk[:, None], torch.zeros_like(bl), bl)
+        Hll_inv = ba_core.inv33(Hll_d)
+        H9s.append(Hll_inv.reshape(tp.L_pad, 9).T.contiguous())          # (9, L_loc)
+        u0s.append(torch.einsum("lij,lj->li", Hll_inv, bl))              # (L_loc, 3)
 
     # reduced RHS br = bc - W Hll^-1 bl (K7)
-    u0 = torch.einsum("lij,lj->li", Hll_inv, bl)               # (L_pad, 3)
-    br = bc - schur_cuda.apply_b_raw(tp.camid, tp.lmloc, W18, u0.T.contiguous(),
-                                     C, TP=TP)
+    br = bc - sh.reduce([schur_cuda.apply_b_raw(tp.camid, tp.lmloc, W, u0.T.contiguous(), C,
+                                                TP=tp.TP)
+                         for tp, W, u0 in zip(plans, W18s, u0s)])
 
     # block-Jacobi preconditioner on the true Schur diagonal (K5)
-    S21 = schur_cuda.d2_precond(tp.camid, tp.lmloc, W18, H9, C, TP=TP)
+    S21 = sh.reduce([schur_cuda.d2_precond(tp.camid, tp.lmloc, W, H9, C, TP=tp.TP)
+                     for tp, W, H9 in zip(plans, W18s, H9s)])
     S_diag = Hcc_d - schur_cuda.sym6_from_tri(S21)
     M_inv = ba_core.inv66_spd(S_diag + 1e-6 * eye6)
 
     def matvec(v):
         Hv = torch.einsum("cij,cj->ci", Hcc_d, v)
-        return Hv - schur_cuda.s_apply(tp.camid, tp.lmloc, W18, v.contiguous(), H9, TP=TP)
+        return Hv - sh.reduce([schur_cuda.s_apply(tp.camid, tp.lmloc, W, vk, H9, TP=tp.TP)
+                               for tp, W, vk, H9 in zip(plans, W18s,
+                                                        sh.replicate(v.contiguous()), H9s)])
 
     gnorm = torch.linalg.norm(br)
     g0 = torch.where(g0 > 0, g0, gnorm)
-    dc = _pcg(matvec, br, M_inv, pcg_iters, rtol=_ew_rtol(gnorm, g0, C))
+    dc = _pcg(matvec, br, M_inv, pcg_iters, rtol=_ew_rtol(gnorm, g0, C), decide=sh.all_true)
     dc = torch.where(fixed_cam[:, None], torch.zeros_like(dc), dc)
 
-    # landmark back-substitution: dl = u0 - Hll^-1 segsum(W^T dc) (K6)
-    a3 = schur_cuda.apply_a_raw(tp.camid, tp.lmloc, W18, dc, H9, TP=TP)
-    dl = u0 - a3.T
-    dl = torch.where(fixed_lm_pad[:, None], torch.zeros_like(dl), dl)
+    # landmark back-substitution: dl = u0 - Hll^-1 segsum(W^T dc) (K6; the
+    # landmark sums are tile-local, so nothing is reduced)
+    X_news = []
+    for tp, W, dck, H9, u0, flk, X in zip(plans, W18s, sh.replicate(dc), H9s, u0s,
+                                          fixed_lm_locs, Xws):
+        a3 = schur_cuda.apply_a_raw(tp.camid, tp.lmloc, W, dck, H9, TP=tp.TP)
+        dl = u0 - a3.T
+        X_news.append(X + torch.where(flk[:, None], torch.zeros_like(dl), dl))
 
     T_new = ba_core.apply_pose_update(Tcw, dc, mask=~fixed_cam)
-    X_new = Xw + dl
-    Wn, auxn, hllbln, cam27n, cost_new = _tile_linearize(T_new, X_new, tp, st)
+    Wn, auxn, hllbln, cam27n, cost_new = _tile_linearize(T_new, X_news, plans, streams, sh)
     accept = cost_new < cost
+    acc = sh.replicate(accept)
+
+    def pick(new, old):
+        return [torch.where(a, x, y) for a, x, y in zip(acc, new, old)]
+
     state = (
         torch.where(accept, T_new, Tcw),
-        torch.where(accept, X_new, Xw),
+        pick(X_news, Xws),
         torch.where(accept, torch.clamp_min(lam * 0.5, 1e-8), torch.clamp_max(lam * 4.0, 1e4)),
         g0,
-        torch.where(accept, Wn, W18),
-        torch.where(accept, auxn, aux3),
-        torch.where(accept, hllbln, hllbl),
+        pick(Wn, W18s),
+        pick(auxn, aux3s),
+        pick(hllbln, hllbls),
         torch.where(accept, cam27n, cam27),
         torch.where(accept, cost_new, cost),
     )
     return state, cost_new
 
 
-def _tile_body(Tcw, Xw_pad, fixed_cam, fixed_lm_pad, n_iters: int,
-               pcg_iters: int, tp: TilePlan, st: TileStreams):
+def _tile_body(Tcw, Xw_locs, fixed_cam, fixed_lm_locs, n_iters: int, pcg_iters: int,
+               plans, streams, sh: Shards):
     """n_iters LM iterations and the final inlier classification on the
-    tile stream. Returns (Tcw, Xw_pad, inlier per slot, cost)."""
+    local shards' tile streams. Returns (Tcw, Xw per local shard, inlier
+    per slot per local shard, cost)."""
     dev = Tcw.device
-    state = (Tcw, Xw_pad, torch.tensor(1e-4, dtype=torch.float32, device=dev),
+    state = (Tcw, Xw_locs, torch.tensor(1e-4, dtype=torch.float32, device=dev),
              torch.tensor(-1.0, dtype=torch.float32, device=dev)) \
-        + _tile_linearize(Tcw, Xw_pad, tp, st)
+        + _tile_linearize(Tcw, Xw_locs, plans, streams, sh)
     for _ in range(n_iters):
-        state, _cost = _tile_iteration(state, fixed_cam, fixed_lm_pad, pcg_iters, tp, st)
-    Tcw_o, Xw_o, _lam, _g0, _W, aux3, _h, _c27, _cost = state
+        state, _cost = _tile_iteration(state, fixed_cam, fixed_lm_locs, pcg_iters, plans,
+                                       streams, sh)
+    Tcw_o, Xw_o, _lam, _g0, _W, aux3s, _h, _c27, _cost = state
     # the carried linearisation is of the carried state, so its aux rows are
     # the classification: no extra pass
-    inlier = aux3[1] > 0.5
-    return Tcw_o, Xw_o, inlier, torch.sum(aux3[1] * aux3[2])
+    return (Tcw_o, Xw_o, [aux[1] > 0.5 for aux in aux3s],
+            sh.reduce([torch.sum(aux[1] * aux[2]) for aux in aux3s]))
 
 
-def make_tile_gba(iterations: int = 5, pcg_iters: int = 25):
-    """Tile-stream GBA on one device.
+def make_tile_gba(iterations: int = 5, pcg_iters: int = 25, devices=None, group=None):
+    """Tile-stream GBA (kernels K3-K7), on one device or over shards of the
+    tile axis.
 
     Returns ``gba(Tcw, Xw, obs, K, fixed_cam, fixed_lm, n_iterations=None)
     -> BAResult``. Accepts any observation stream; the tile plan is built
     on the host once per problem and cached by the identity of the
     observation index arrays (strong references, so a recycled id() cannot
     alias a stale plan).
+
+    ``devices`` and ``group`` as for ``Shards``: the plan's tiles split
+    into equal contiguous ranges, one a shard, each shard's slot streams
+    and landmarks on its device; K3's camera sums and cost, K5, K7 and each
+    K4 product are reduced, K6 and the landmark update are shard-local.
+    Neither (the default): one shard on the observations' device, which
+    launches what the one-device solver always did. Over a group every rank
+    passes the same problem and returns the full result: the landmark rows
+    and inlier slots are gathered over the group.
     """
     plan_cache: list = [None]
 
     def gba(Tcw, Xw, obs: ba_core.BAObservations, K, fixed_cam, fixed_lm,
             n_iterations=None) -> BAResult:
         C, L = int(Tcw.shape[0]), int(Xw.shape[0])
+        dev_in = Tcw.device
+        sh = _shards(devices, group, obs.cam_idx.device)
         ent = plan_cache[0]
         if (ent is None or ent[0] is not obs.lm_idx or ent[1] is not obs.cam_idx
                 or ent[2] != (C, L) or ent[3] is not obs.valid):
             ent = (obs.lm_idx, obs.cam_idx, (C, L), obs.valid,
-                   build_tile_plan(obs, C, L))
+                   build_tile_plan(obs, C, L, n_shards=sh.n))
             plan_cache[0] = ent
         tp = ent[4]
         n_it = iterations if n_iterations is None else int(n_iterations)
@@ -299,10 +636,22 @@ def make_tile_gba(iterations: int = 5, pcg_iters: int = 25):
                                                        device=fixed_lm.device)])
         Xw_pad = torch.cat([Xw, torch.zeros((pad, 3), dtype=Xw.dtype, device=Xw.device)])
         st = tile_streams(tp, obs, K, fixed_cam, fixed_lm_pad)
-        Tcw_o, Xw_o, inlier_slots, cost = _tile_body(
-            Tcw, Xw_pad, fixed_cam, fixed_lm_pad, n_it, pcg_iters, tp, st)
+        if sh.n == 1 and sh.home == obs.cam_idx.device:
+            plans, streams, Xws, fls = [tp], [st], [Xw_pad], [fixed_lm_pad]
+        else:
+            cuts = [shard_tile_plan(tp, st, (a // schur_cuda.LM_BLOCK, b // schur_cuda.LM_BLOCK), d)
+                    for (a, b), d in zip(sh.ranges(tp.L_pad), sh.devices)]
+            plans, streams = [c[0] for c in cuts], [c[1] for c in cuts]
+            Xws = [Xw_pad[a:b].to(d) for (a, b), d in zip(sh.ranges(tp.L_pad), sh.devices)]
+            fls = [fixed_lm_pad[a:b].to(d) for (a, b), d in zip(sh.ranges(tp.L_pad), sh.devices)]
+        h = sh.home
+        Tcw_o, Xw_locs, inlier_locs, cost = _tile_body(
+            Tcw.to(h), Xws, fixed_cam.to(h), fls, n_it, pcg_iters, plans, streams, sh)
+        Xw_o = sh.gather(Xw_locs, tp.L_pad)
+        inlier_slots = sh.gather(inlier_locs, tp.ntl * tp.TP).to(dev_in)
         inlier = inlier_slots[tp.slot_of] & obs.valid
-        return BAResult(Tcw=Tcw_o, Xw=Xw_o[:L], obs_inlier=inlier, cost=cost)
+        return BAResult(Tcw=Tcw_o.to(dev_in), Xw=Xw_o[:L].to(dev_in), obs_inlier=inlier,
+                        cost=cost.to(dev_in))
 
     return gba
 

@@ -3,17 +3,19 @@
 Counterpart of ``motioncheck_ccm_slam_tpu/solvers/ba_core.py``. The problem
 is flat structure-of-arrays: poses Tcw (C, 4, 4), landmarks Xw (L, 3) and
 observations (``BAObservations``); invalid slots carry zero weight.
-Per-entity reductions are scatter-adds (``index_add_``); the JAX package's
-gather-based segment plans (``SegmentPlan``) exist for the TPU's serialised
-scatters and are not carried over. ``SortedSegments``, the landmark sort
-order of the matrix-free GBA, is a host-side numpy plan.
+Per-entity reductions are scatter-adds (``index_add_``) unless the caller
+passes a segment plan (``SegmentPlan``: a gather and a masked sum, built
+on the host), as the JAX package does for the TPU's serialised scatters; no
+solver of the port passes one. ``SortedSegments``, the landmark sort order
+of the matrix-free GBA, is a host-side numpy plan; ``sorted_seg_sum``
+reduces a stream sorted by it.
 
 Perturbation convention: left-multiplicative se3, xi = (omega, upsilon),
 Tcw <- exp(xi) @ Tcw (matches ops/lie.py).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -32,6 +34,65 @@ class BAObservations(NamedTuple):
     valid: torch.Tensor       # (O,) bool
 
 
+class SegmentPlan(NamedTuple):
+    """Gather-based segment reduction: for segment ids ``idx`` (O,) over N
+    segments, ``table[n, k]`` lists the observation positions of segment n
+    (padded, ``mask`` marks the real ones); ``seg_sum(plan, x)`` then does
+    the reduction as a gather and a masked sum. When the ids are exactly
+    ``repeat(arange(N), k)`` (a camera-major contiguous stream), ``table``
+    and ``mask`` are None and ``seg_size`` is k: a reshape-sum."""
+
+    table: Optional[torch.Tensor]   # (N, Kmax) i64 observation positions
+    mask: Optional[torch.Tensor]    # (N, Kmax) bool
+    seg_size: int = 0               # contiguous fast path when > 0
+
+
+def build_segment_plan(idx, n: int, valid=None, device="cpu") -> SegmentPlan:
+    """Host-side plan (numpy) of segment ids ``idx`` in [0, n), placed on
+    ``device``. ``valid`` (O,) bool leaves invalid observations out of the
+    tables (their weights are zero; the product stream parks every empty
+    feature slot at landmark 0, which would otherwise set Kmax)."""
+    idx = np.asarray(idx, np.int64)
+    if valid is not None:
+        valid = np.asarray(valid, bool)
+        if valid.all():
+            valid = None
+    if valid is None and len(idx) and len(idx) % n == 0:
+        k = len(idx) // n
+        if (idx == np.repeat(np.arange(n, dtype=np.int64), k)).all():
+            return SegmentPlan(None, None, seg_size=k)
+    keep = np.flatnonzero(valid) if valid is not None else np.arange(len(idx), dtype=np.int64)
+    idx_k = idx[keep]
+    order = np.argsort(idx_k, kind="stable")
+    counts = np.bincount(idx_k, minlength=n)
+    kmax = max(int(counts.max()) if len(idx_k) else 1, 1)
+    starts = np.zeros(n + 1, np.int64)
+    starts[1:] = np.cumsum(counts)
+    pos_in_seg = np.arange(len(idx_k), dtype=np.int64) - starts[idx_k[order]]
+    table = np.zeros((n, kmax), np.int64)
+    mask = np.zeros((n, kmax), bool)
+    table[idx_k[order], pos_in_seg] = keep[order]
+    mask[idx_k[order], pos_in_seg] = True
+    return SegmentPlan(torch.from_numpy(table).to(device), torch.from_numpy(mask).to(device))
+
+
+def seg_sum(plan: SegmentPlan, x: torch.Tensor) -> torch.Tensor:
+    """(O, ...) -> (N, ...) segment sums by the plan's gather table (or a
+    reshape-sum on contiguous segments)."""
+    if plan.seg_size:
+        k = plan.seg_size
+        return x.reshape((x.shape[0] // k, k) + x.shape[1:]).sum(1)
+    g = x[plan.table]
+    m = plan.mask.reshape(plan.mask.shape + (1,) * (x.dim() - 1))
+    return torch.where(m, g, torch.zeros_like(g)).sum(1)
+
+
+def _seg_or_scatter(plan: Optional[SegmentPlan], idx, x, n: int) -> torch.Tensor:
+    if plan is not None:
+        return seg_sum(plan, x)
+    return _scatter_sum(idx, x, n)
+
+
 class SortedSegments(NamedTuple):
     """Segment reduction over observations pre-sorted by segment id:
     ``order`` permutes observations into sorted order once per problem;
@@ -48,6 +109,17 @@ def build_sorted_segments(idx, n: int) -> SortedSegments:
     bounds = np.zeros(n + 1, np.int64)
     bounds[1:] = np.cumsum(np.bincount(idx, minlength=n))
     return SortedSegments(order=order, bounds=bounds)
+
+
+def sorted_seg_sum(x_sorted: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
+    """(O, ...) sorted by segment -> (N, ...) by prefix sum and boundary
+    difference along axis 0 (``bounds`` (N+1,) i64 on x's device). The
+    prefix sum is taken in float64, as the matrix-free GBA's ``_lm_sum_t``:
+    a float32 running sum would lose a small segment's digits to the total
+    before it."""
+    cs = torch.cumsum(x_sorted.double(), 0)
+    cs = torch.cat([torch.zeros_like(cs[:1]), cs], 0)
+    return (cs[bounds[1:]] - cs[bounds[:-1]]).to(x_sorted.dtype)
 
 
 def reproject_residuals(Tcw, Xw, obs: BAObservations, K):
@@ -113,8 +185,11 @@ def _scatter_sum(idx: torch.Tensor, x: torch.Tensor, n: int) -> torch.Tensor:
     return out.index_add_(0, idx, x)
 
 
-def assemble_blocks(Jc, Jl, r, w, cam_idx, lm_idx, C: int, L: int):
-    """Per-entity Hessian blocks and gradients by scatter-add.
+def assemble_blocks(Jc, Jl, r, w, cam_idx, lm_idx, C: int, L: int,
+                    cam_plan: Optional[SegmentPlan] = None,
+                    lm_plan: Optional[SegmentPlan] = None):
+    """Per-entity Hessian blocks and gradients by segment sum (gather-based
+    where a plan is given, scatter-add otherwise).
 
     Returns:
       Hcc (C, 6, 6), bc (C, 6)  — camera diagonal blocks & gradient
@@ -123,11 +198,11 @@ def assemble_blocks(Jc, Jl, r, w, cam_idx, lm_idx, C: int, L: int):
     """
     wJc = Jc * w[:, None, None]
     wJl = Jl * w[:, None, None]
-    Hcc = _scatter_sum(cam_idx, torch.einsum("oic,oid->ocd", wJc, Jc), C)
-    Hll = _scatter_sum(lm_idx, torch.einsum("oic,oid->ocd", wJl, Jl), L)
+    Hcc = _seg_or_scatter(cam_plan, cam_idx, torch.einsum("oic,oid->ocd", wJc, Jc), C)
+    Hll = _seg_or_scatter(lm_plan, lm_idx, torch.einsum("oic,oid->ocd", wJl, Jl), L)
     # gradient of 0.5 r^T W r wrt params: b = -J^T W r (we solve H dx = b)
-    bc = _scatter_sum(cam_idx, -torch.einsum("oic,oi->oc", wJc, r), C)
-    bl = _scatter_sum(lm_idx, -torch.einsum("oic,oi->oc", wJl, r), L)
+    bc = _seg_or_scatter(cam_plan, cam_idx, -torch.einsum("oic,oi->oc", wJc, r), C)
+    bl = _seg_or_scatter(lm_plan, lm_idx, -torch.einsum("oic,oi->oc", wJl, r), L)
     Wcl = torch.einsum("oic,oid->ocd", wJc, Jl)     # (O, 6, 3)
     return Hcc, bc, Hll, bl, Wcl
 

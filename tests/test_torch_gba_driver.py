@@ -44,6 +44,7 @@ from motioncheck_ccm_slam_tpu_torch import config as tconfig
 from motioncheck_ccm_slam_tpu_torch import convert
 from motioncheck_ccm_slam_tpu_torch.models import gba as tgba
 from motioncheck_ccm_slam_tpu_torch.models import map_state as tms
+from motioncheck_ccm_slam_tpu_torch.parallel import comm as tcomm
 from motioncheck_ccm_slam_tpu_torch.solvers import local_ba as tlba
 
 import test_interrupt_ba as tib
@@ -410,3 +411,94 @@ def test_gba_survives_mid_job_growth():
     T_rel0 = poses[0] @ np.linalg.inv(poses[-1])
     T_rel = m.kf.Tcw[new].numpy() @ np.linalg.inv(m.kf.Tcw[slots[-1]].numpy())
     assert np.abs(T_rel - T_rel0).max() < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# FINALBA: interrupt and re-arm (tests/test_interrupt_ba.py:171)
+# ---------------------------------------------------------------------------
+
+def _port_kf_msg_for(m, slot, kf_id, client_id=0):
+    """tests/test_interrupt_ba._kf_msg_for on a port map: a minimal full
+    keyframe message chained to an existing server keyframe."""
+    F = m.kf.xy.shape[1]
+    pred_id = int(m.kf.kf_id[slot])
+    Tcp = np.eye(4, dtype=np.float32)
+    Tcp[0, 3] = 0.1
+    rng = np.random.default_rng(kf_id)
+    return tcomm.KfMsg(
+        kf_id=kf_id, client_id=client_id, timestamp=float(kf_id), Tcp=Tcp, pred_id=pred_id,
+        parent_id=pred_id, xy=np.zeros((F, 2), np.float32), angle=np.zeros(F, np.float32),
+        octave=np.zeros(F, np.int32), desc=rng.integers(0, 2 ** 32, (F, 8), dtype=np.uint32),
+        feat_valid=np.zeros(F, bool), mp_ids=np.full(F, -1, np.int64))
+
+
+def _finalba_sequence(server, msg, to_np):
+    """test_interrupt_ba's FINALBA sequence on a ServerSystem whose handler
+    0 holds the arc map: the agent goes quiet, ``msg`` arrives as the final
+    GBA would run, the GBA is aborted and re-armed; the message is ingested,
+    the agent goes quiet again and the final GBA completes; a third call
+    does nothing. Returns what each step showed."""
+    h = server.handlers[0]
+    h.comm.got_data = False
+    h.comm.idle_cycles = 10 ** 6
+    Tcw_before = to_np(h.map.kf.Tcw).copy()
+    h.channel.client_send(msg)
+    out = dict(first=server.maybe_final_gba(), interrupts=server.n_gba_interrupts,
+               done_after_abort=server.final_gba_done,
+               untouched=bool(np.array_equal(to_np(h.map.kf.Tcw), Tcw_before)))
+    server.spin_once()
+    out["ingested"] = (50, 0) in h.map.kf_slot_by_id
+    h.comm.got_data = False
+    h.comm.idle_cycles = 10 ** 6
+    out.update(second=server.maybe_final_gba(), done=server.final_gba_done)
+    out.update(third=server.maybe_final_gba(), interrupts_end=server.n_gba_interrupts,
+               Tcw=to_np(h.map.kf.Tcw).copy(), valid=to_np(h.map.kf.valid).copy())
+    return out
+
+
+def test_final_gba_interrupts_and_rearms(monkeypatch):
+    """FINALBA on the port's ServerSystem and on the JAX package's, from
+    one arc map (test_interrupt_ba's pass: 6 KFs, 500-point world, built
+    with numpy) and one keyframe message: fresh agent data queued as the
+    final GBA would run aborts it on both sides, leaves the map bit for bit,
+    counts one interruption and re-arms; once the data is ingested and the
+    agent is quiet again the final GBA completes once. Both sides show the
+    same sequence, and their final poses agree within 1e-4 (the JAX side
+    on the dense-W route, as the port's at this size)."""
+    from motioncheck_ccm_slam_tpu.config import CommParams
+    from motioncheck_ccm_slam_tpu.system.server import ServerSystem as JServerSystem
+    from motioncheck_ccm_slam_tpu_torch.system.server import ServerSystem
+
+    _jax_dense_route(monkeypatch)
+    cfg = tib.CONFIG.replace(comm=CommParams(final_ba_idle_s=0.2))
+    tcfg = port_config(cfg)
+    poses, ts = arc_poses(6, step=0.25)
+    mj = jax_map(cfg, SynthWorld(cfg, n_points=500, seed=5), poses, ts, 6)
+    runs = {}
+    for side in ("jax", "port"):
+        if side == "jax":
+            server = JServerSystem(config=cfg, n_agents=1)
+            m = mj
+        else:
+            server = ServerSystem(config=tcfg, n_agents=1, device="cpu")
+            m = convert.map_state_from_numpy(mj, tcfg, "cpu")
+        h = server.handlers[0]
+        assert (m.nk, m.nm) == (h.map.nk, h.map.nm)
+        h.map.kf, h.map.mp, h.map.next_kf_slot = m.kf, m.mp, m.next_kf_slot
+        h.map.kf_slot_by_id, h.map.mp_slot_by_id = dict(m.kf_slot_by_id), dict(m.mp_slot_by_id)
+        slot = h.map.kf_slot_by_id[(5, 0)]
+        msg = (tib.comm_mod.MapMsg(sender_client_id=0, keyframes=[tib._kf_msg_for(h.map, slot, 50)])
+               if side == "jax" else
+               tcomm.MapMsg(sender_client_id=0, keyframes=[_port_kf_msg_for(h.map, slot, 50)]))
+        runs[side] = _finalba_sequence(
+            server, msg, np.asarray if side == "jax" else (lambda t: t.numpy()))
+    j, t = runs["jax"], runs["port"]
+    assert (t["first"], t["interrupts"], t["done_after_abort"], t["untouched"]) == (
+        False, 1, False, True)
+    assert (t["ingested"], t["second"], t["done"], t["third"], t["interrupts_end"]) == (
+        True, True, True, False, 1)
+    for k in ("first", "interrupts", "done_after_abort", "untouched", "ingested", "second",
+              "done", "third", "interrupts_end"):
+        assert t[k] == j[k], k
+    np.testing.assert_array_equal(t["valid"], j["valid"])
+    assert np.abs(t["Tcw"][t["valid"]] - j["Tcw"][j["valid"]]).max() < 1e-4

@@ -59,7 +59,8 @@ def test_port_imports_no_jax_and_no_triton():
             "models.map_merging", "solvers.sim3_opt", "solvers.pose_graph",
             "parallel.comm", "system.server", "cli", "persistence", "parallel.codec",
             "parallel.transport", "utils.native", "utils.png", "utils.viewer",
-            "utils.live_viewer", "utils.euroc", "utils.kitti", "utils.synth_scene")
+            "utils.live_viewer", "utils.euroc", "utils.kitti", "utils.synth_scene",
+            "utils.bigmap")
     }
     assert expected <= set(out["modules"]), expected - set(out["modules"])
     assert out["jax"] == []

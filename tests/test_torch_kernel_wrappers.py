@@ -26,6 +26,9 @@ the bench state's fractions of one, so its residual-derived outputs too
 are held at 1e-4, part by part, its inlier flags may differ from the
 plain version's on one slot or 1e-4 of them (a chi2 within rounding of
 the gate), and its per-slot outputs are bitwise equal between two calls.
+The card tests also run the tile GBA over shards of one card
+(``parallel/sharded_ba.Shards``: 2 and 4 shards in one process, and two
+gloo ranks) against the one-device solve.
 """
 import types
 
@@ -587,3 +590,84 @@ def test_k6_matches_plain_version_at_small_edge_shapes_on_card(cuda_device, name
         assert _relmax(a, b) < 1e-4, fn_name
         if name == "c130_tp128_pad_tile":
             assert not a[:, 128:256].any(), fn_name
+
+
+# ---------------------------------------------------------------------------
+# The tile GBA over shards on the card (parallel/sharded_ba.Shards)
+# ---------------------------------------------------------------------------
+
+# bench_gba's generator (entry.gba_problem) at 256 KFs x 8192 landmarks x
+# 256 observations a KF, from phase 9's perturbed start: ~8 observations a
+# landmark, so some are seen once or twice. Such a landmark has almost no
+# depth constraint and moves with the summation order alone, so Xw is held
+# at 5e-3 on landmarks with at least 3 valid observations and at
+# SHARD_XW_POOR on the rest.
+SHARD_PROBLEM = dict(C=256, L=8192, obs_per_cam=256)
+SHARD_BOUNDS = dict(cost=1e-3, Tcw=1e-3, Xw=5e-3)
+SHARD_MIN_OBS, SHARD_XW_POOR = 3, 5e-2
+
+
+def _shard_problem(device):
+    """(Tcw, Xw, obs, K, fixed_cam, fixed_lm) of ``SHARD_PROBLEM`` from
+    phase 9's perturbed start, camera 0 fixed."""
+    from motioncheck_ccm_slam_tpu_torch import entry
+
+    Tcw, Xw, obs, K, fixed_cam, fixed_lm = entry.gba_problem(device, **SHARD_PROBLEM)
+    Tcw, Xw = chip_smoke.perturbed_state(Tcw, Xw)
+    return Tcw, Xw, obs, K, fixed_cam, fixed_lm
+
+
+def _assert_shards_close(cost, Tcw, Xw, ref, obs):
+    """The shard bounds against ``ref``; Xw split by each landmark's count
+    of valid observations (the errors of both classes are printed)."""
+    c = float(ref.cost)
+    assert abs(float(cost) - c) <= SHARD_BOUNDS["cost"] * c
+    assert float(np.abs(np.asarray(Tcw) - ref.Tcw.cpu().numpy()).max()) < SHARD_BOUNDS["Tcw"]
+    n_obs = np.bincount(obs.lm_idx[obs.valid].cpu().numpy(), minlength=ref.Xw.shape[0])
+    err = np.abs(np.asarray(Xw) - ref.Xw.cpu().numpy()).max(1)
+    good = n_obs >= SHARD_MIN_OBS
+    print(f"Xw max |d|: {err[good].max():.3g} on {good.sum()} landmarks with >= "
+          f"{SHARD_MIN_OBS} observations, {err[~good].max():.3g} on the {(~good).sum()} others")
+    assert float(err[good].max()) < SHARD_BOUNDS["Xw"]
+    assert float(err[~good].max()) < SHARD_XW_POOR
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_tile_gba_shards_on_one_card(cuda_device, n):
+    """n shards of the tile axis on one card against the one-device solve
+    (5 LM iterations on ``SHARD_PROBLEM``): within 1e-3 in cost (relative)
+    and Tcw, Xw as ``_assert_shards_close``; each of K3-K7 launched once a
+    shard where the one-device solver launches it once."""
+    args = _shard_problem(cuda_device)
+    ref = sharded_ba.make_tile_gba(iterations=5, pcg_iters=25)(*args)
+    chip_smoke.zero_launches(chip_smoke.GBA_KERNELS)
+    res = sharded_ba.make_tile_gba(iterations=5, pcg_iters=25,
+                                   devices=[cuda_device] * n)(*args)
+    torch.cuda.synchronize()
+    got = chip_smoke.read_launches(chip_smoke.GBA_KERNELS)
+    _assert_shards_close(res.cost, res.Tcw.cpu(), res.Xw.cpu(), ref, args[2])
+    assert got["d1_assemble"] == 6 * n
+    for name in ("d2_precond", "apply_a_raw", "apply_b_raw"):
+        assert got[name] == 5 * n, name
+    assert got["s_apply"] >= 5 * n and got["s_apply"] % n == 0
+
+
+@pytest.mark.cuda
+def test_tile_gba_over_two_gloo_processes_on_one_card(cuda_device, tmp_path):
+    """Two ranks of a gloo group sharing the card, one shard each, against
+    the one-process solve over two shards: the same bounds, the full Xw and
+    inlier mask on every rank, equal PCG sweep counts."""
+    args = _shard_problem(cuda_device)
+    ref = sharded_ba.make_tile_gba(iterations=5, pcg_iters=25,
+                                   devices=[cuda_device] * 2)(*args)
+    path = str(tmp_path / "problem.npz")
+    chip_smoke.save_gba_problem(path, *args)
+    recs = chip_smoke.run_gba_children(path, "tile", "gloo", 2, "cuda:0", 5, 25,
+                                       str(tmp_path), timeout_s=240)
+    for rec in recs:
+        r = rec["result"]
+        _assert_shards_close(r["cost"], r["Tcw"], r["Xw"], ref, args[2])
+        assert r["Xw"].shape == tuple(ref.Xw.shape)
+        assert r["obs_inlier"].shape == tuple(ref.obs_inlier.shape)
+    assert recs[0]["launches"]["s_apply"] == recs[1]["launches"]["s_apply"]
