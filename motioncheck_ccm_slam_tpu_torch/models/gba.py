@@ -33,6 +33,7 @@ import torch
 from ..config import Config
 from ..ops import orb
 from ..solvers import ba_core, local_ba
+from ..utils import trace
 from . import map_state as ms
 from . import motion_check as mc
 
@@ -87,6 +88,7 @@ def _pick_solver(C: int, L: int, pcg_iters: int = 25, device=None):
 def build_observations(kf: ms.KFBlock, config: Config) -> ba_core.BAObservations:
     cam, _feat, lm, uv, octv, ok = ms.gather_observations(kf)
     inv_s2 = torch.as_tensor(orb.inv_level_sigma2(config.extractor), device=uv.device)
+    trace.count("host_syncs")      # an upload from pageable memory
     return ba_core.BAObservations(
         cam_idx=cam, lm_idx=lm, uv=uv,
         inv_sigma2=inv_s2[torch.clamp(octv, 0, config.extractor.n_levels - 1).long()],
@@ -131,6 +133,7 @@ class GBAJob:
         dev = m.device
         self.T_SC_inv = torch.from_numpy(
             np.linalg.inv(config.camera.T_SC()).astype(np.float32)).to(dev)
+        trace.count("host_syncs")        # an upload from pageable memory
         # snapshot pre-GBA state on the live blocks (reference SetTcwCurrent
         # :1520); the landmark snapshot is the job's own copy for revert
         m.kf = mc.snapshot_pre_gba(m.kf, self.T_SC_inv)
@@ -140,15 +143,18 @@ class GBAJob:
         # NOW; anything allocated later is out-of-problem until finalize)
         self.kf_in = m.kf.valid.cpu().numpy().copy()
         self.mp_in = m.mp.valid.cpu().numpy().copy()
+        trace.count("host_syncs", 2)
         self.obs = build_observations(m.kf, config)
         self.K = torch.from_numpy(config.camera.K()).to(dev)
         kf_ids = m.kf.kf_id.cpu().numpy()
+        trace.count("host_syncs", 2)
         fixed = ~self.kf_in
         if self.kf_in.any():
             origin = np.flatnonzero(self.kf_in)[np.argmin(kf_ids[self.kf_in])]
             fixed = fixed.copy()
             fixed[origin] = True
         self.fixed_j = torch.from_numpy(fixed).to(dev)
+        trace.count("host_syncs")
         self.fixed_lm = ~m.mp.valid
         if self.solver is None:
             self.solver = _pick_solver(int(m.kf.Tcw.shape[0]), int(m.mp.Xw.shape[0]),
@@ -176,6 +182,7 @@ class GBAJob:
             )
         self.Tcw, self.Xw = ba.Tcw, ba.Xw
         self._cost = float(ba.cost)
+        trace.count("host_syncs")
         self.done += n_it
         return self.finished
 
@@ -193,6 +200,7 @@ class GBAJob:
         m = self.m
         dev = m.device
         valid_now = m.kf.valid.cpu().numpy()
+        trace.count("host_syncs")
         new_kfs = np.flatnonzero(valid_now & ~self.kf_in)
         if len(new_kfs):
             parent = m.kf.parent.cpu().numpy()
@@ -204,6 +212,7 @@ class GBAJob:
             # earlier in this loop chains off the corrected pose, not the
             # stale pre-propagation copy
             Tcw_opt = self.Tcw.cpu().numpy().copy()
+            trace.count("host_syncs", 5)
             updated = []
             # nearest in-problem ancestor through parent (pred fallback)
             for s in sorted(new_kfs, key=lambda s: kf_ids[s]):
@@ -222,21 +231,26 @@ class GBAJob:
                 idx = torch.as_tensor(updated, dtype=torch.long, device=dev)
                 Tcw = self.Tcw.clone()
                 Tcw[idx] = torch.from_numpy(Tcw_opt[updated]).to(dev)
+                trace.count("host_syncs", 2)
                 self.Tcw = Tcw
         mp_valid_now = m.mp.valid.cpu().numpy()
+        trace.count("host_syncs")
         new_mps = np.flatnonzero(mp_valid_now & ~self.mp_in)
         if len(new_mps):
             ref = m.mp.ref_kf.cpu().numpy()
+            trace.count("host_syncs")
             ok = (ref[new_mps] >= 0) & self.kf_in[np.clip(ref[new_mps], 0, m.nk - 1)]
             sel = new_mps[ok]
             if len(sel):
                 r = torch.as_tensor(ref[sel], dtype=torch.long, device=dev)
                 sel_t = torch.as_tensor(sel, dtype=torch.long, device=dev)
+                trace.count("host_syncs", 2)
                 Tb = m.kf.Tcw[r]          # current (pre-writeback) ref pose
                 Ta = self.Tcw[r]          # optimized ref pose
                 X = m.mp.Xw[sel_t]
                 x_cam = torch.einsum("lij,lj->li", Tb[:, :3, :3], X) + Tb[:, :3, 3]
                 Ta_inv = torch.linalg.inv(Ta)
+                trace.count("host_syncs")   # linalg.inv reads its error flags
                 X_new = torch.einsum("lij,lj->li", Ta_inv[:, :3, :3], x_cam) \
                     + Ta_inv[:, :3, 3]
                 Xw = self.Xw.clone()
@@ -270,6 +284,7 @@ class GBAJob:
         result = GBAResult(cost=self._cost)
         kf_in_start = torch.from_numpy(self.kf_in.copy()).to(dev)
         mp_in_start = torch.from_numpy(self.mp_in.copy()).to(dev)
+        trace.count("host_syncs", 2)
         self._propagate_to_new_entities()
         # live pre-writeback state: an MC revert restores in-problem entities
         # to the pre-GBA snapshot and mid-job entities to this
@@ -280,6 +295,7 @@ class GBAJob:
         # yet) keeps its live map state rather than the job's stale copy
         write_kf = torch.from_numpy(self.kf_in).to(dev) & m.kf.valid
         write_mp = torch.from_numpy(self.mp_in).to(dev) & m.mp.valid
+        trace.count("host_syncs", 2)
         m.kf = m.kf._replace(Tcw=torch.where(write_kf[:, None, None], self.Tcw, m.kf.Tcw))
         m.mp = m.mp._replace(Xw=torch.where(write_mp[:, None], self.Xw, m.mp.Xw))
 
@@ -288,6 +304,7 @@ class GBAJob:
         if run_corrective:
             valid = m.kf.valid.cpu().numpy() & self.kf_in
             clients = np.unique(m.kf.client_id.cpu().numpy()[valid])
+            trace.count("host_syncs", 2)
             for cid in clients:
                 if cid < 0:
                     continue
@@ -315,6 +332,7 @@ class GBAJob:
                     result.reverted = True
                     break
                 n_del = int(m.kf.valid.sum()) - int(kf2.valid.sum())
+                trace.count("host_syncs", 2)
                 result.n_deleted_kfs += n_del
                 m.kf, m.mp = kf2, mp2
             if result.n_deleted_kfs:

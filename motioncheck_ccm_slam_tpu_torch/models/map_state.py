@@ -25,6 +25,7 @@ import torch
 
 from ..config import Config
 from ..ops import matching
+from ..utils import trace
 
 INVALID = -1
 
@@ -445,12 +446,14 @@ class MapState:
         kf_valid = self.kf.valid.cpu().numpy()
         kf_ids = self.kf.kf_id.cpu().numpy()
         kf_cids = self.kf.client_id.cpu().numpy()
+        trace.count("host_syncs", 3)
         self.kf_slot_by_id = {
             (int(kf_ids[s]), int(kf_cids[s])): s for s in np.flatnonzero(kf_valid)
         }
         mp_valid = self.mp.valid.cpu().numpy()
         mp_ids = self.mp.mp_id.cpu().numpy()
         mp_cids = self.mp.client_id.cpu().numpy()
+        trace.count("host_syncs", 3)
         self.mp_slot_by_id = {
             (int(mp_ids[s]), int(mp_cids[s])): s for s in np.flatnonzero(mp_valid)
         }

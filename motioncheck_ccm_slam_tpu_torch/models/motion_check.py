@@ -27,6 +27,7 @@ import torch
 
 from ..config import MotionCheckParams
 from ..ops import lie
+from ..utils import trace
 from . import map_state as ms
 
 _F32 = np.float32
@@ -60,7 +61,10 @@ def motion_violates(step_post, prev_step_post, step_pre, prev_step_pre,
     fails).
 
     Quirk preserved: all three per-plane limits use the *xy* tracking angle
-    (reference :2902 uses tracking_xy_degree for xy, yz and zx)."""
+    (reference :2902 uses tracking_xy_degree for xy, yz and zx).
+
+    Each call counts as one ``mc_steps`` (``utils/trace``)."""
+    trace.count("mc_steps")
     deg = _angle_deg(step_post, prev_step_post)
     tdeg = _angle_deg(step_pre, prev_step_pre)
     fail_dir = np.abs(deg - tdeg) > (
@@ -140,32 +144,35 @@ def run_motion_check(pos_post, pos_pre, valid, params: MotionCheckParams
                      ) -> MotionCheckVerdict:
     """Forward + reverse CorrectKF_V3 passes + verdict over one client's
     time-ordered KF sequence. Inputs are (N, 3), (N, 3), (N,) arrays or
-    tensors; they are read once to the host."""
+    tensors; they are read once to the host. What follows the reads is span
+    ``mc_passes`` (``utils/trace``)."""
     pos_post = _host(pos_post).astype(_F32)
     pos_pre = _host(pos_pre).astype(_F32)
     valid = _host(valid).astype(bool)
-    doubt_f, _ = motion_check_pass(pos_post, pos_pre, valid,
-                                   np.zeros(pos_post.shape[0], np.int32),
-                                   params, reverse=False)
-    doubt_r, nfail_rev = motion_check_pass(pos_post[::-1], pos_pre[::-1], valid[::-1],
-                                           doubt_f[::-1], params, reverse=True)
-    doubt = doubt_r[::-1].copy()
-    violate = valid & (doubt >= params.violate_doubt_thres)
-    # longest consecutive violating run (CheckMVKF :3932)
-    longest = cur = 0
-    for v in violate:
-        cur = cur + 1 if v else 0
-        longest = max(longest, cur)
-    # revert if long run OR >= 10% of KFs failed the reverse pass (reference
-    # :3805: badKF_counter >= foundKFs.size()/10)
-    revert = (longest >= params.revert_run_thres) or (
-        _F32(nfail_rev) >= _F32(params.revert_frac_thres) * _F32(valid.sum()))
+    with trace.span("mc_passes"):
+        doubt_f, _ = motion_check_pass(pos_post, pos_pre, valid,
+                                       np.zeros(pos_post.shape[0], np.int32),
+                                       params, reverse=False)
+        doubt_r, nfail_rev = motion_check_pass(pos_post[::-1], pos_pre[::-1], valid[::-1],
+                                               doubt_f[::-1], params, reverse=True)
+        doubt = doubt_r[::-1].copy()
+        violate = valid & (doubt >= params.violate_doubt_thres)
+        # longest consecutive violating run (CheckMVKF :3932)
+        longest = cur = 0
+        for v in violate:
+            cur = cur + 1 if v else 0
+            longest = max(longest, cur)
+        # revert if long run OR >= 10% of KFs failed the reverse pass
+        # (reference :3805: badKF_counter >= foundKFs.size()/10)
+        revert = (longest >= params.revert_run_thres) or (
+            _F32(nfail_rev) >= _F32(params.revert_frac_thres) * _F32(valid.sum()))
     return MotionCheckVerdict(revert=bool(revert), violate=violate, doubt=doubt,
                               longest_run=longest, n_rev_failures=nfail_rev)
 
 
 def _host(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
+        trace.count("host_syncs")
         return x.detach().cpu().numpy()
     return np.asarray(x)
 
@@ -192,10 +199,13 @@ def check_after_gba(kf: ms.KFBlock, T_SC_inv: torch.Tensor, params: MotionCheckP
     KF slot."""
     ts = kf.timestamp.cpu().numpy()
     valid = kf.valid.cpu().numpy()
+    trace.count("host_syncs", 2)
     if client_id is not None:
         valid = valid & (kf.client_id.cpu().numpy() == client_id)
+        trace.count("host_syncs")
     order = np.argsort(np.where(valid, ts, np.inf), kind="stable")
     order_t = torch.from_numpy(order).to(kf.Tcw.device)
+    trace.count("host_syncs")        # an upload from pageable memory
     pos_post = body_positions(kf.Tcw, T_SC_inv)[order_t]
     pos_pre = kf.tracking_tws[order_t]
     verdict = run_motion_check(pos_post, pos_pre, valid[order], params)
@@ -219,6 +229,7 @@ def apply_verdict(kf: ms.KFBlock, mp: ms.MPBlock, verdict: MotionCheckVerdict,
     violate_slots = torch.zeros(kf.valid.shape[0], dtype=torch.bool, device=dev)
     violate_slots[torch.from_numpy(np.asarray(order)).to(dev)] = \
         torch.from_numpy(np.asarray(verdict.violate, bool)).to(dev)
+    trace.count("host_syncs", 2)
     new_valid = kf.valid & ~violate_slots
     kf2 = kf._replace(
         valid=new_valid,
@@ -226,5 +237,7 @@ def apply_verdict(kf: ms.KFBlock, mp: ms.MPBlock, verdict: MotionCheckVerdict,
         feat_valid=kf.feat_valid & new_valid[:, None],
     )
     n_obs = ms.mp_observation_counts(kf2, mp.valid.shape[0])
+    # two boolean-mask indexings, unique's size, bincount's min and max
+    trace.count("host_syncs", 5)
     mp2 = mp._replace(valid=mp.valid & (n_obs > 0))
     return kf2, mp2, False

@@ -64,6 +64,7 @@ import torch.distributed as dist
 from ..ops import schur_cuda
 from ..solvers import ba_core
 from ..solvers.local_ba import BAResult, _robust_cost
+from ..utils import trace
 
 # Eisenstat-Walker forcing for the inner PCG solve: rtol_k =
 # clip(sqrt(|g_k| / |g_0|), EW_FLOOR, EW_MAX), loose while the gradient is
@@ -92,32 +93,41 @@ def _pcg(matvec, b, M_inv_blocks, iters: int, rtol=1e-5, decide=bool):
     drops below rtol^2 * (r0.z0). ``rtol`` may be a 0-d tensor. The exit
     test reads one scalar to the host per sweep, through ``decide`` (a
     0-d bool tensor -> bool): ``Shards.all_true`` over a process group, so
-    that every rank takes the same number of sweeps.
+    that every rank takes the same number of sweeps. The solve is span
+    ``pcg``, each exit test's read span ``pcg_exit_read`` and a host sync
+    (``utils/trace``).
     """
 
     def precond(r):
         return torch.einsum("cij,cj->ci", M_inv_blocks, r)
 
-    x = torch.zeros_like(b)
-    r = b
-    z = precond(r)
-    p = z
-    rz = torch.sum(r * z)
-    thresh = (rtol * rtol) * rz
-    one = torch.ones_like(rz)
-    i = 0
-    while i < iters and decide(rz > thresh):
-        Ap = matvec(p)
-        pAp = torch.sum(p * Ap)
-        alpha = rz / torch.where(torch.abs(pAp) < 1e-12, one, pAp)
-        x = x + alpha * p
-        r = r - alpha * Ap
+    with trace.span("pcg"):
+        x = torch.zeros_like(b)
+        r = b
         z = precond(r)
-        rz_new = torch.sum(r * z)
-        beta = rz_new / torch.where(torch.abs(rz) < 1e-12, one, rz)
-        p = z + beta * p
-        rz = rz_new
-        i += 1
+        p = z
+        rz = torch.sum(r * z)
+        thresh = (rtol * rtol) * rz
+        one = torch.ones_like(rz)
+        i = 0
+        while i < iters:
+            flag = rz > thresh
+            with trace.span("pcg_exit_read"):
+                go = decide(flag)
+            trace.count("host_syncs")
+            if not go:
+                break
+            Ap = matvec(p)
+            pAp = torch.sum(p * Ap)
+            alpha = rz / torch.where(torch.abs(pAp) < 1e-12, one, pAp)
+            x = x + alpha * p
+            r = r - alpha * Ap
+            z = precond(r)
+            rz_new = torch.sum(r * z)
+            beta = rz_new / torch.where(torch.abs(rz) < 1e-12, one, rz)
+            p = z + beta * p
+            rz = rz_new
+            i += 1
     return x
 
 
@@ -411,32 +421,37 @@ def build_tile_plan(obs: ba_core.BAObservations, C: int, L: int,
     the tiles split into ``n_shards`` equal ranges. Raises on a valid
     observation whose camera or landmark index is out of range (the kernels
     index with them)."""
-    lm_np = obs.lm_idx.cpu().numpy().astype(np.int64)
-    cam_np = obs.cam_idx.cpu().numpy().astype(np.int64)
-    valid_np = obs.valid.cpu().numpy().astype(bool)
-    if valid_np.any():
-        lv, cv = lm_np[valid_np], cam_np[valid_np]
-        if lv.min() < 0 or lv.max() >= L or cv.min() < 0 or cv.max() >= C:
-            raise ValueError(f"observation index out of range (C={C}, L={L})")
-    O = lm_np.shape[0]
-    order = np.argsort(lm_np, kind="stable")
-    sp = schur_cuda.build_schur_plan(lm_np[order], cam_np[order], L,
-                                     valid_sorted=valid_np[order], lpad_multiple=n_shards)
-    to_orig = np.append(order, O)[sp.perm]
-    real = to_orig < O
-    slot_of = np.zeros(O, np.int64)
-    slot_of[to_orig[real]] = np.flatnonzero(real)
-    tiles = np.arange(sp.ntl * sp.TP, dtype=np.int64) // sp.TP
-    lm_p = tiles * schur_cuda.LM_BLOCK + sp.lmloc
+    with trace.span("tile_plan"):
+        with trace.span("tile_plan_read"):
+            lm_h, cam_h, valid_h = obs.lm_idx.cpu(), obs.cam_idx.cpu(), obs.valid.cpu()
+        trace.count("host_syncs", 3)
+        lm_np = lm_h.numpy().astype(np.int64)
+        cam_np = cam_h.numpy().astype(np.int64)
+        valid_np = valid_h.numpy().astype(bool)
+        if valid_np.any():
+            lv, cv = lm_np[valid_np], cam_np[valid_np]
+            if lv.min() < 0 or lv.max() >= L or cv.min() < 0 or cv.max() >= C:
+                raise ValueError(f"observation index out of range (C={C}, L={L})")
+        O = lm_np.shape[0]
+        order = np.argsort(lm_np, kind="stable")
+        sp = schur_cuda.build_schur_plan(lm_np[order], cam_np[order], L,
+                                         valid_sorted=valid_np[order], lpad_multiple=n_shards)
+        to_orig = np.append(order, O)[sp.perm]
+        real = to_orig < O
+        slot_of = np.zeros(O, np.int64)
+        slot_of[to_orig[real]] = np.flatnonzero(real)
+        tiles = np.arange(sp.ntl * sp.TP, dtype=np.int64) // sp.TP
+        lm_p = tiles * schur_cuda.LM_BLOCK + sp.lmloc
 
-    dev = obs.cam_idx.device
+        dev = obs.cam_idx.device
 
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        def t(a):
+            trace.count("host_syncs")      # an upload from pageable memory
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    return TilePlan(ntl=sp.ntl, TP=sp.TP, L_pad=sp.L_pad, camid=t(sp.camid),
-                    lmloc=t(sp.lmloc), to_orig=t(to_orig), slot_of=t(slot_of),
-                    lm_p=t(lm_p))
+        return TilePlan(ntl=sp.ntl, TP=sp.TP, L_pad=sp.L_pad, camid=t(sp.camid),
+                        lmloc=t(sp.lmloc), to_orig=t(to_orig), slot_of=t(slot_of),
+                        lm_p=t(lm_p))
 
 
 class TileStreams(NamedTuple):
@@ -507,6 +522,8 @@ def _tile_iteration(state, fixed_cam, fixed_lm_locs, pcg_iters: int, plans, stre
     C = Tcw.shape[0]
     dev, dt = Tcw.device, Tcw.dtype
     Hcc = schur_cuda.sym6_from_tri(cam27[:, :21])
+    # sym6_from_tri indexes by numpy arrays: four uploads from pageable memory
+    trace.count("host_syncs", 4)
     bc = cam27[:, 21:]
     eye6 = torch.eye(6, dtype=dt, device=dev)
     Hcc_d = ba_core.damp_blocks(Hcc, lam)
@@ -534,6 +551,7 @@ def _tile_iteration(state, fixed_cam, fixed_lm_locs, pcg_iters: int, plans, stre
     S21 = sh.reduce([schur_cuda.d2_precond(tp.camid, tp.lmloc, W, H9, C, TP=tp.TP)
                      for tp, W, H9 in zip(plans, W18s, H9s)])
     S_diag = Hcc_d - schur_cuda.sym6_from_tri(S21)
+    trace.count("host_syncs", 4)
     M_inv = ba_core.inv66_spd(S_diag + 1e-6 * eye6)
 
     def matvec(v):
@@ -587,6 +605,7 @@ def _tile_body(Tcw, Xw_locs, fixed_cam, fixed_lm_locs, n_iters: int, pcg_iters: 
     state = (Tcw, Xw_locs, torch.tensor(1e-4, dtype=torch.float32, device=dev),
              torch.tensor(-1.0, dtype=torch.float32, device=dev)) \
         + _tile_linearize(Tcw, Xw_locs, plans, streams, sh)
+    trace.count("host_syncs", 2)     # the two scalars' uploads
     for _ in range(n_iters):
         state, _cost = _tile_iteration(state, fixed_cam, fixed_lm_locs, pcg_iters, plans,
                                        streams, sh)
