@@ -34,16 +34,10 @@ from motioncheck_ccm_slam_tpu_torch.ops import fast_cuda
 from motioncheck_ccm_slam_tpu_torch.utils import png
 
 import test_euroc
-from test_torch_client import one_torch_thread
+import torch_one_thread  # noqa: F401 (torch on one thread)
 
 MAX_ATE_M = 0.10
 EUROC_FRAMES = 12
-
-
-@pytest.fixture(scope="module", autouse=True)
-def torch_on_one_thread():
-    with one_torch_thread():
-        yield
 
 
 def memoised(fn):

@@ -24,7 +24,6 @@ The port alone must meet test_client_e2e's bounds: OK at the end, ATE
 below 0.05 m. ``_relocalize`` is compared on one frame against the final
 JAX map carried across with ``convert.map_state_from_numpy``.
 """
-import contextlib
 import dataclasses
 import functools
 
@@ -46,6 +45,7 @@ from motioncheck_ccm_slam_tpu_torch.utils import csv_io as tcsv
 from synth_scene import SynthScene
 from test_client_e2e import TEST_CONFIG
 from test_torch_gba_driver import port_config
+import torch_one_thread  # noqa: F401 (torch on one thread)
 
 N_FRAMES = 24
 CENTRE_ATOL_M = 5e-3
@@ -86,26 +86,6 @@ def _run(client, frames, kf_counter):
         client.process_image(img, t)
         log.append((client.tracker.state.name, kf_counter(client) != n_kf, client.map.n_mps))
     return log
-
-
-@contextlib.contextmanager
-def one_torch_thread():
-    """Torch's intra-op threads wait in spinning OpenMP barriers: with the
-    suite's parallel workers sharing the cores, the port's thousands of
-    small ops ran >10x slower on 8 threads than on 1. One thread also
-    keeps the port's float32 sums independent of the core count."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def torch_on_one_thread():
-    with one_torch_thread():
-        yield
 
 
 @pytest.fixture(scope="session")
@@ -170,7 +150,7 @@ def _client_runs():
         out["witness_log"] = _run(jw, frames, lambda c: c.mapper.next_kf_id)
         out["witness"] = jw
 
-    with pytest.MonkeyPatch.context() as mp, one_torch_thread():
+    with pytest.MonkeyPatch.context() as mp:
         draws = TrackerDraws()
         mp.setattr(transac, "_sample_indices", draws)
         tc = TClient(config=port_config(TEST_CONFIG), device="cpu")

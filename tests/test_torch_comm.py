@@ -39,19 +39,13 @@ from motioncheck_ccm_slam_tpu_torch.system.server import ServerSystem as TServer
 
 from synth_scene import SynthScene
 from test_comm_server import TEST_CONFIG
-from test_torch_client import one_torch_thread
 from test_torch_gba_driver import port_config
 from test_torch_server import GeneratorDraws
+import torch_one_thread  # noqa: F401 (torch on one thread)
 
 T_CONFIG = port_config(TEST_CONFIG)
 N_FRAMES = 14
 POSE_ATOL = 1e-5
-
-
-@pytest.fixture(scope="module", autouse=True)
-def torch_on_one_thread():
-    with one_torch_thread():
-        yield
 
 
 def _drive(client, server, frames, drop_every_other=False, drain=4):
@@ -113,7 +107,7 @@ def _runs():
         _drive(client, server, frames)
     out = dict(frames=frames, feats=feats, jax=(client, server))
     draws = GeneratorDraws()
-    with pytest.MonkeyPatch.context() as mp, one_torch_thread():
+    with pytest.MonkeyPatch.context() as mp:
         mp.setattr(transac, "_sample_indices", draws)
         mp.setattr(tframe, "make_frame", _jax_feature_frames(feats))
         out["port"] = _port_pair(feats, draws)

@@ -20,6 +20,8 @@ from motioncheck_ccm_slam_tpu.config import DEFAULT_CONFIG
 from motioncheck_ccm_slam_tpu.ops import fast_pallas
 from motioncheck_ccm_slam_tpu_torch.ops import fast_cuda, image as image_ops
 
+import torch_one_thread  # noqa: F401 (torch on one thread)
+
 
 def _fixture_137x201():
     # the fixture of tests/test_fast_pallas.py

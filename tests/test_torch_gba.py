@@ -23,6 +23,7 @@ from motioncheck_ccm_slam_tpu_torch.solvers import local_ba as tlba
 
 from test_ba import K
 from test_tile_gba import _perturbed
+import torch_one_thread  # noqa: F401 (torch on one thread)
 
 
 def _scene(name):

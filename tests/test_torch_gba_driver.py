@@ -51,6 +51,7 @@ import test_interrupt_ba as tib
 import test_mc_gating as tmg
 from synth_map import SynthWorld, arc_poses, ring_poses, ring_world
 from test_torch_motion_check import _JIT_MC
+import torch_one_thread  # noqa: F401 (torch on one thread)
 
 
 def port_config(cfg):

@@ -3,7 +3,9 @@ motioncheck_ccm_slam_tpu_torch imports without pulling in jax or any module
 of the JAX package, none imports triton at module level (the CPU test
 host has no triton), and none imports matplotlib or PIL (the card's
 machine has neither). The port's copy of the config holds the JAX
-package's operating points."""
+package's operating points. Every port test module runs torch on one
+thread (tests/torch_one_thread.py)."""
+import ast
 import dataclasses
 import inspect
 import json
@@ -22,6 +24,8 @@ from motioncheck_ccm_slam_tpu_torch.models import tracking as ttrack
 from motioncheck_ccm_slam_tpu_torch.models import database as tdb, loop_closing as tlc
 from motioncheck_ccm_slam_tpu_torch.models import map_matching as tmm, vocabulary as tvoc
 from motioncheck_ccm_slam_tpu_torch.system import client as tclient, server as tserver
+
+import torch_one_thread  # noqa: F401 (torch on one thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -83,6 +87,19 @@ def test_config_copy_matches_jax_package(name):
                  (t.camera.dist_coeffs(), j.camera.dist_coeffs())):
         assert a.dtype == b.dtype
         assert (a == b).all()
+
+
+def test_port_modules_run_torch_on_one_thread():
+    """Every port test module imports torch_one_thread, so a process that
+    collects any of them runs torch on one thread."""
+    assert torch.get_num_threads() == 1
+    here = os.path.join(ROOT, "tests")
+    for name in sorted(os.listdir(here)):
+        if name.startswith("test_torch_") and name.endswith(".py"):
+            with open(os.path.join(here, name)) as f:
+                body = ast.parse(f.read()).body
+            imported = {a.name for n in body if isinstance(n, ast.Import) for a in n.names}
+            assert "torch_one_thread" in imported, name
 
 
 def test_entry_points_default_to_the_card():

@@ -42,6 +42,8 @@ from motioncheck_ccm_slam_tpu_torch import convert
 from motioncheck_ccm_slam_tpu_torch.ops import fast_cuda, schur_cuda
 from motioncheck_ccm_slam_tpu_torch.parallel import sharded_ba
 
+import torch_one_thread  # noqa: F401 (torch on one thread)
+
 K1_ARGS = dict(th_hi=20.0, th_lo=7.0, border=19)
 
 

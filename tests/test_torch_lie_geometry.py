@@ -16,6 +16,8 @@ from motioncheck_ccm_slam_tpu.config import DEFAULT_CONFIG
 from motioncheck_ccm_slam_tpu.ops import geometry as jgeo, image as jimg, lie as jlie
 from motioncheck_ccm_slam_tpu_torch.ops import geometry as tgeo, image as timg, lie as tlie
 
+import torch_one_thread  # noqa: F401 (torch on one thread)
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 NEAR_PI_TOL = dict(rtol=1e-4, atol=1e-4)
 

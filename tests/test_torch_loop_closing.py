@@ -37,19 +37,13 @@ from motioncheck_ccm_slam_tpu_torch.solvers import ba_core, local_ba
 import chip_smoke
 from synth_map import arc_poses
 from test_loop_closing import CONFIG
-from test_torch_client import one_torch_thread
 from test_torch_gba_driver import port_config
 from test_torch_server import GeneratorDraws
+import torch_one_thread  # noqa: F401 (torch on one thread)
 
 T_CONFIG = port_config(CONFIG)
 POSE_ATOL = 1e-3
 XW_ATOL = 1e-3
-
-
-@pytest.fixture(scope="module", autouse=True)
-def torch_on_one_thread():
-    with one_torch_thread():
-        yield
 
 
 def _build_jax_map():

@@ -37,18 +37,12 @@ import test_merge_probation as tmp_
 import test_sim3_guided as tsg
 from synth_map import SynthWorld, add_pass, arc_poses
 from test_map_matching import CONFIG, _build_map
-from test_torch_client import one_torch_thread
 from test_torch_gba_driver import port_config
 from test_torch_server import GeneratorDraws
+import torch_one_thread  # noqa: F401 (torch on one thread)
 
 T_CONFIG = port_config(CONFIG)
 S_ATOL = 1e-4
-
-
-@pytest.fixture(scope="module", autouse=True)
-def torch_on_one_thread():
-    with one_torch_thread():
-        yield
 
 
 def _port(m, cfg=T_CONFIG):

@@ -41,8 +41,9 @@ from motioncheck_ccm_slam_tpu_torch.models.frame import Frame as TFrame
 from synth_map import SynthWorld, add_pass, arc_poses
 from test_client_e2e import TEST_CONFIG
 from test_fuse_replace import CONFIG as FUSE_CONFIG
-from test_torch_client import jax_run, torch_on_one_thread  # noqa: F401 (fixtures)
+from test_torch_client import jax_run  # noqa: F401 (a fixture)
 from test_torch_gba_driver import port_config
+import torch_one_thread  # noqa: F401 (torch on one thread)
 
 BA_POSE_ATOL = 1e-4
 BA_PX_ATOL = 2e-3

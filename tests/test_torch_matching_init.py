@@ -16,7 +16,7 @@ from motioncheck_ccm_slam_tpu.ops import lie as jlie, matching as jm
 from motioncheck_ccm_slam_tpu_torch import convert
 from motioncheck_ccm_slam_tpu_torch.ops import matching as tm
 
-from test_torch_client import torch_on_one_thread  # noqa: F401 (an autouse fixture)
+import torch_one_thread  # noqa: F401 (torch on one thread)
 
 CAM = DEFAULT_CONFIG.camera
 

@@ -17,6 +17,8 @@ from motioncheck_ccm_slam_tpu_torch import convert
 from motioncheck_ccm_slam_tpu_torch.ops import matching as tm
 from motioncheck_ccm_slam_tpu_torch.solvers import ba_core as tba, pose_opt as tpo
 
+import torch_one_thread  # noqa: F401 (torch on one thread)
+
 
 def _desc(rng, n):
     return rng.integers(0, 2**32, (n, 8), dtype=np.uint32)

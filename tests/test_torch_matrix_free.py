@@ -38,6 +38,7 @@ from motioncheck_ccm_slam_tpu_torch.solvers import ba_core as tba
 from test_ba import K, synth_scene
 from test_torch_gba import _scene as gba_scene
 from test_torch_schur import SUM_TOL, _relerr, _t, scene  # noqa: F401  (fixture)
+import torch_one_thread  # noqa: F401 (torch on one thread)
 
 STREAM_TOL = 1e-6
 COST_RTOL = 1e-5

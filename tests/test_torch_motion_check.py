@@ -33,6 +33,7 @@ from motioncheck_ccm_slam_tpu_torch.models import map_state as tms
 from motioncheck_ccm_slam_tpu_torch.models import motion_check as tmc
 
 from test_motion_check import smooth_trajectory
+import torch_one_thread  # noqa: F401 (torch on one thread)
 
 JP, TP_ = JParams(skip_edge_kfs=3), TParams(skip_edge_kfs=3)
 # the JAX reference, compiled once per shape (its scans otherwise compile

@@ -23,6 +23,8 @@ from motioncheck_ccm_slam_tpu.ops import fast_pallas, orb as jorb
 from motioncheck_ccm_slam_tpu_torch import convert
 from motioncheck_ccm_slam_tpu_torch.ops import fast_cuda, image as image_ops, orb as torb
 
+import torch_one_thread  # noqa: F401 (torch on one thread)
+
 
 def test_static_tables_bitwise():
     np.testing.assert_array_equal(torb._brief_pattern(), jorb._brief_pattern())

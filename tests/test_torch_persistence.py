@@ -30,9 +30,9 @@ from motioncheck_ccm_slam_tpu.system.server import ServerSystem as JServer
 from motioncheck_ccm_slam_tpu_torch import convert, persistence as tpersist
 from motioncheck_ccm_slam_tpu_torch.system.server import ServerSystem as TServer
 
-from test_torch_client import one_torch_thread
 from test_torch_gba_driver import port_config
 from test_torch_placerec import BOW_ATOL
+import torch_one_thread  # noqa: F401 (torch on one thread)
 
 NK, NM, F = 16, 96, 64
 J_CONFIG = jconfig.Config().replace(
@@ -40,12 +40,6 @@ J_CONFIG = jconfig.Config().replace(
     capacity=jconfig.CapacityParams(client_max_kfs=NK, client_max_mps=NM,
                                     server_max_kfs=NK, server_max_mps=NM))
 T_CONFIG = port_config(J_CONFIG)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def torch_on_one_thread():
-    with one_torch_thread():
-        yield
 
 
 def numpy_blocks(seed: int = 0, repeat_ids: bool = False):

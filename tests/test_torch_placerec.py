@@ -20,18 +20,12 @@ from motioncheck_ccm_slam_tpu_torch import convert
 from motioncheck_ccm_slam_tpu_torch.models import vocabulary as tvoc
 from motioncheck_ccm_slam_tpu_torch.models.database import KeyFrameDatabase as TDatabase
 
-from test_torch_client import one_torch_thread
 from test_vocabulary import perturb, rand_desc
+import torch_one_thread  # noqa: F401 (torch on one thread)
 
 BOW_ATOL = 1e-6
 # the vocabularies of tests/test_vocabulary.py and the system's default
 VOCABS = [dict(k=4, levels=3, n_train=4000), dict(k=8, levels=4, n_train=8000), dict()]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def torch_on_one_thread():
-    with one_torch_thread():
-        yield
 
 
 def _vocabs(kw):

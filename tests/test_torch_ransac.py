@@ -28,7 +28,7 @@ from motioncheck_ccm_slam_tpu.ops import lie as jlie, ransac as jr
 from motioncheck_ccm_slam_tpu_torch.ops import ransac as tr
 
 from test_ransac import make_two_view
-from test_torch_client import torch_on_one_thread  # noqa: F401 (an autouse fixture)
+import torch_one_thread  # noqa: F401 (torch on one thread)
 
 CAM = CameraParams()
 K = CAM.K()

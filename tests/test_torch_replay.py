@@ -36,8 +36,8 @@ from motioncheck_ccm_slam_tpu_torch.utils.kitti import KittiSequence as TKitti
 import synth_scene as jsynth
 import test_euroc
 import test_kitti
-from test_torch_client import one_torch_thread
 from test_torch_persistence import jax_map, port_map
+import torch_one_thread  # noqa: F401 (torch on one thread)
 
 # tests/synth_scene.py and the port's copy give bitwise-equal poses and
 # frames: the port's pose is a float32 numpy copy of se3_exp whose sin and
@@ -49,12 +49,6 @@ from test_torch_persistence import jax_map, port_map
 POSE_ATOL = 1e-6
 FRAME_ATOL = 0.0
 PINHOLE = dict(k1=0.0, k2=0.0, p1=0.0, p2=0.0, k3=0.0)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def torch_on_one_thread():
-    with one_torch_thread():
-        yield
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,7 @@ from motioncheck_ccm_slam_tpu_torch.ops import schur_cuda
 from motioncheck_ccm_slam_tpu_torch.parallel import sharded_ba as tsb
 
 from test_ba import CAM, K, synth_scene
+import torch_one_thread  # noqa: F401 (torch on one thread)
 
 SLOT_TOL = 1e-5
 RESIDUAL_TOL = 1e-3

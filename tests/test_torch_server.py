@@ -58,8 +58,8 @@ from motioncheck_ccm_slam_tpu_torch.system.server import ServerSystem as TServer
 
 from synth_scene import SynthScene
 from test_multi_agent import BASE, OffsetScene
-from test_torch_client import one_torch_thread
 from test_torch_gba_driver import port_config
+import torch_one_thread  # noqa: F401 (torch on one thread)
 
 N_FRAMES = 28
 CENTRE_ATOL_M = 5e-3
@@ -89,12 +89,6 @@ class GeneratorDraws:
         w = None if weights is None else jnp.asarray(weights.cpu().numpy())
         idx = jransac._sample_indices(sub, n_hyp, set_size, n_pts, weights=w)
         return torch.from_numpy(np.asarray(idx).astype(np.int64)).to(generator.device)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def torch_on_one_thread():
-    with one_torch_thread():
-        yield
 
 
 def _frames():
@@ -221,16 +215,15 @@ def _runs():
     out["witness"] = _replay(witness, stream, _nudged_stream(np.random.default_rng(7)))
 
     cfg = port_config(BASE)
-    with one_torch_thread():
-        server = TServer(config=cfg, n_agents=2, device="cpu")
-        for h in server.handlers.values():
-            h.loop_closer.run_gba_after_loop = False
-        draws = GeneratorDraws()
-        _register_server(draws, server)
-        with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(transac, "_sample_indices", draws)
-            out["server"] = _replay(server, stream, _port_msg)
-        out["e2e"] = _port_end_to_end(cfg, frames, feats)
+    server = TServer(config=cfg, n_agents=2, device="cpu")
+    for h in server.handlers.values():
+        h.loop_closer.run_gba_after_loop = False
+    draws = GeneratorDraws()
+    _register_server(draws, server)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(transac, "_sample_indices", draws)
+        out["server"] = _replay(server, stream, _port_msg)
+    out["e2e"] = _port_end_to_end(cfg, frames, feats)
     return out
 
 

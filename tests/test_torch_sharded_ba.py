@@ -34,15 +34,9 @@ from motioncheck_ccm_slam_tpu_torch.utils import bigmap as tbigmap
 
 from test_ba import K, synth_scene
 from test_tile_gba import _perturbed
-from test_torch_client import one_torch_thread
+import torch_one_thread  # noqa: F401 (torch on one thread)
 
 SEG_RTOL = 1e-6
-
-
-@pytest.fixture(scope="module", autouse=True)
-def torch_on_one_thread():
-    with one_torch_thread():
-        yield
 
 
 def _rel(a, b) -> float:

@@ -27,16 +27,10 @@ from motioncheck_ccm_slam_tpu_torch.solvers import pose_graph as tpg, sim3_opt a
 
 from test_pose_graph import _chain_problem
 from test_sim3_guided import CONFIG as SG_CONFIG, _marginal_revisit_map
-from test_torch_client import one_torch_thread
+import torch_one_thread  # noqa: F401 (torch on one thread)
 
 S_ATOL = 1e-4
 COST_RTOL = 1e-4
-
-
-@pytest.fixture(scope="module", autouse=True)
-def torch_on_one_thread():
-    with one_torch_thread():
-        yield
 
 
 def _t(a, dtype=None):

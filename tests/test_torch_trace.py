@@ -19,6 +19,8 @@ from motioncheck_ccm_slam_tpu_torch.models import gba, motion_check
 from motioncheck_ccm_slam_tpu_torch.parallel import sharded_ba
 from motioncheck_ccm_slam_tpu_torch.utils import trace
 
+import torch_one_thread  # noqa: F401 (torch on one thread)
+
 
 def test_span_adds_host_seconds():
     before = trace.seconds.pcg

@@ -29,7 +29,7 @@ from motioncheck_ccm_slam_tpu_torch.models import frame as tframe
 from motioncheck_ccm_slam_tpu_torch.models import tracking as ttrack
 
 from synth_scene import SynthScene
-from test_torch_client import torch_on_one_thread  # noqa: F401 (an autouse fixture)
+import torch_one_thread  # noqa: F401 (torch on one thread)
 
 CFG = _small_preset(DEFAULT_CONFIG)
 

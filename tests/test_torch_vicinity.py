@@ -33,6 +33,7 @@ from synth_map import SynthWorld, arc_poses
 from test_aux import CONFIG as AUX_CONFIG
 from test_sim3_downlink import SCALE, _fusion_sim3
 from test_torch_gba_driver import jax_map, port_config
+import torch_one_thread  # noqa: F401 (torch on one thread)
 
 CONFIG = AUX_CONFIG.replace(comm=CommParams(server_kfs_to_client=8))
 T_CONFIG = port_config(CONFIG)

@@ -38,17 +38,11 @@ from motioncheck_ccm_slam_tpu_torch.parallel import transport as ttransport
 from motioncheck_ccm_slam_tpu_torch.system.server import ServerClientHandler
 from motioncheck_ccm_slam_tpu_torch.utils import native as tnative
 
-from test_torch_client import one_torch_thread
 from test_transport import make_msg
+import torch_one_thread  # noqa: F401 (torch on one thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LIBWIRE = os.path.join(ROOT, "native", "libwire.so")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def torch_on_one_thread():
-    with one_torch_thread():
-        yield
 
 
 def payloads():
