@@ -63,6 +63,26 @@ TABLE = (
     Entry("mc_steps", "counter", "mc_passes",
           "motion_check.motion_violates calls: the step tests of both passes",
           ("mc_steps_per_gba",)),
+    Entry("loop_detect", "span", None,
+          "loop_closing.LoopCloser.detect: the BoW query and the covisibility consistency",
+          ("loop_detect_s",)),
+    Entry("loop_sim3", "span", None,
+          "LoopCloser.compute_sim3: mutual matching, Sim3 RANSAC, the guided refinement",
+          ("loop_sim3_s",)),
+    Entry("loop_correct", "span", None,
+          "LoopCloser.correct_loop up to the essential graph: covisibility reads, the "
+          "correction's propagation and landmark fusion",
+          ("loop_correct_s",)),
+    Entry("ess_graph", "span", None,
+          "LoopCloser._optimize_essential_graph: edge assembly on the host, the Sim3 pose "
+          "graph's LM and the landmarks' correction",
+          ("ess_graph_s",)),
+    Entry("ess_graph_jac", "span", "ess_graph",
+          "pose_graph._edge_jacobians: the edges' forward-mode Jacobians, once an LM iteration",
+          ("ess_graph_jac_s",)),
+    Entry("ess_graph_edges", "counter", "ess_graph",
+          "edges of each essential graph handed to pose_graph.optimize_pose_graph",
+          ("ess_graph_edges",)),
 )
 
 SPANS = tuple(e.name for e in TABLE if e.kind == "span")

@@ -17,6 +17,11 @@ tests/test_loop_closing.py's drifted revisit.
   (12 of 48 keyframes valid, most landmark slots empty), as it does at
   server capacity on the card: its cost falls and stays finite, nothing
   is reverted, and test_organic_chain_with_gba's bound holds.
+- Where parity ends: on the same revisit with the second pass also at
+  scale 0.9, the essential graph's start (captured at
+  ``optimize_pose_graph``) is the JAX package's outside the corrected
+  group and the JAX package's times the loop's scale inside it (the port
+  keeps CorrectedSim3's scale; the JAX package projects it away).
 """
 import functools
 
@@ -162,6 +167,87 @@ def test_chip_smoke_builder_matches_add_pass():
     assert m_c.kf_slot_by_id == m_j.kf_slot_by_id
     assert m_c.mp_slot_by_id == m_j.mp_slot_by_id
     np.testing.assert_allclose(np.stack(poses), np.stack(arc_poses(6)[0]), rtol=0, atol=1e-5)
+
+
+def _scaled_revisit():
+    """The drifted revisit with the second pass also at scale 0.9: its
+    landmarks moved by the Sim3 D, its poses SE3 in D's frame (the
+    depths scaled), as a monocular map holds a scale-drifted pass."""
+    import jax.numpy as jnp
+    from motioncheck_ccm_slam_tpu.models import map_state as jms
+    from motioncheck_ccm_slam_tpu.ops import lie as jlie
+    from synth_map import SynthWorld, add_pass
+
+    world = SynthWorld(CONFIG, n_points=400, seed=0)
+    m = jms.MapState.create(CONFIG, server=False)
+    poses, ts = arc_poses(6, step=0.25)
+    add_pass(m, world, poses, ts, kf_id_start=0, seed=1)
+    D = np.array(jlie.se3_exp(jnp.asarray(
+        np.array([0.0, 0.026, 0.0, 0.15, 0.05, 0.0], np.float32))))
+    D[:3, :3] *= SCALE_DRIFT
+    slots2 = add_pass(m, world, poses, [t + 10.0 for t in ts], kf_id_start=50,
+                      lm_pose_error=D, seed=2)
+    rows = jnp.asarray(slots2)
+    m.kf = m.kf._replace(Tcw=m.kf.Tcw.at[rows, :3, :].multiply(SCALE_DRIFT))
+    return m
+
+
+SCALE_DRIFT = 0.9
+
+
+def test_scaled_loop_start_differs_from_jax_in_the_group_scale_only():
+    """On a loop with scale drift the port starts the essential graph's
+    corrected group from its Sim3 poses (ORB-SLAM2's CorrectedSim3), where
+    the JAX package starts it from their SE3 projections [R, t/s]: the two
+    starts agree outside the group, and inside it the port's is the JAX
+    package's times the loop's scale s."""
+    m_j = _scaled_revisit()
+    m_t = convert.map_state_from_numpy(m_j, T_CONFIG, "cpu")
+    jc = jlc.LoopCloser(config=CONFIG, map=m_j, run_gba_after_loop=False,
+                        database=jdb.KeyFrameDatabase(vocab=jvoc.default_vocabulary(),
+                                                      capacity=m_j.nk))
+    tc = tlc.LoopCloser(config=T_CONFIG, map=m_t, run_gba_after_loop=False,
+                        database=tdb.KeyFrameDatabase(vocab=tvoc.default_vocabulary(),
+                                                      capacity=m_t.nk, device="cpu"))
+    starts = {}
+
+    def spy(tag, solve):
+        def call(S_iw_init, *a, **kw):
+            starts[tag] = np.asarray(S_iw_init, np.float64)
+            return solve(S_iw_init, *a, **kw)
+        return call
+
+    slots = np.flatnonzero(np.asarray(m_j.kf.valid)).tolist()
+    draws = GeneratorDraws()
+    draws.register(tc.generator, jax.random.PRNGKey(42))
+    sim3 = {}
+    compute = tc.compute_sim3
+
+    def keep_sim3(cur, cand):
+        got = compute(cur, cand)
+        if got is not None:
+            sim3["S12"] = got[0].numpy().astype(np.float64)
+        return got
+
+    tc.compute_sim3 = keep_sim3
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jlc.pose_graph, "optimize_pose_graph",
+                   spy("jax", jlc.pose_graph.optimize_pose_graph))
+        mp.setattr(tlc.pose_graph, "optimize_pose_graph",
+                   spy("port", tlc.pose_graph.optimize_pose_graph))
+        closed_j = [jc.process_keyframe(s) for s in slots]
+        mp.setattr(transac, "_sample_indices", draws)
+        closed_t = [tc.process_keyframe(s) for s in slots]
+    assert closed_t == closed_j and any(closed_t)
+    assert set(starts) == {"jax", "port"} and starts["jax"].shape == starts["port"].shape
+    s = float(np.cbrt(np.linalg.det(sim3["S12"][:3, :3])))
+    assert abs(np.log(s)) > 0.05, s
+    Sj, St = starts["jax"], starts["port"]
+    group = np.abs(St - Sj).reshape(len(St), -1).max(-1) > POSE_ATOL
+    assert 0 < group.sum() < len(St), group
+    np.testing.assert_allclose(St[~group], Sj[~group], rtol=0, atol=POSE_ATOL)
+    np.testing.assert_allclose(St[group][:, :3, :], s * Sj[group][:, :3, :], rtol=0,
+                               atol=POSE_ATOL)
 
 
 def _robust_cost(Tcw, Xw, obs, K):
