@@ -12,11 +12,11 @@ The anchor bookkeeping of ``CorrectKF_V3`` (:3647-3840) is sequential:
 each KF's step is measured from the previous non-doubted anchor. The
 reference runs it on the CPU, and so does this port: the two passes
 (forward, then reversed with margin relaxation near doubted anchors) and
-the longest-violating-run count are Python loops over one host copy of a
-client's (N, 3) pre- and post-GBA body positions (N <= 2048 keyframes),
-with the per-KF test (``motion_violates``) in float32 numpy. The body
-positions, the pre-GBA snapshot and the verdict's application stay on the
-map's device.
+the longest-violating-run count are float32 numpy array operations over
+one host copy of a client's (N, 3) pre- and post-GBA body positions
+(N <= 2048 keyframes), every step of a pass tested in one
+``motion_violates`` call. The body positions, the pre-GBA snapshot and the
+verdict's application stay on the map's device.
 """
 from __future__ import annotations
 
@@ -40,9 +40,9 @@ def body_positions(Tcw: torch.Tensor, T_SC_inv: torch.Tensor) -> torch.Tensor:
     return Tws[..., :3, 3]
 
 
-def _angle_deg(a: np.ndarray, b: np.ndarray) -> _F32:
-    """Angle (deg) between vectors; the reference uses 180/3.14 (not pi) —
-    reproduced for parity (src/Map.cpp:2878)."""
+def _angle_deg(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Angle (deg) between the vectors of the last axis; the reference uses
+    180/3.14 (not pi) — reproduced for parity (src/Map.cpp:2878)."""
     na = np.linalg.norm(a, axis=-1)
     nb = np.linalg.norm(b, axis=-1)
     cos = np.sum(a * b, -1) / np.maximum(na * nb, _F32(1e-12))
@@ -50,21 +50,31 @@ def _angle_deg(a: np.ndarray, b: np.ndarray) -> _F32:
 
 
 def _plane_angle_deg(a, b, i: int, j: int):
-    return _angle_deg(a[[i, j]], b[[i, j]])
+    return _angle_deg(a[..., [i, j]], b[..., [i, j]])
+
+
+def _length(v: np.ndarray) -> np.ndarray:
+    """Length of each (..., 3) step as ``np.linalg.norm`` gives it for one
+    (3,) vector: the root of numpy's BLAS dot product, which rounds
+    otherwise than the float32 sum of an ``axis=-1`` norm (on ~10% of
+    steps). numpy's matmul takes the same dot for each stacked
+    (1, 3) @ (3, 1) product."""
+    return np.sqrt(np.matmul(v[..., None, :], v[..., :, None])[..., 0, 0])
 
 
 def motion_violates(step_post, prev_step_post, step_pre, prev_step_pre,
-                    degree_margin, movement_margin,
-                    params: MotionCheckParams) -> bool:
-    """The three checks of reference Map::MotionCheck (:2894-2907) on (3,)
-    float32 step vectors. Returns True if the KF violates motion (any check
-    fails).
+                    degree_margin, movement_margin, params: MotionCheckParams):
+    """The three checks of reference Map::MotionCheck (:2894-2907) on
+    float32 step vectors of shape (..., 3), with margins that broadcast
+    against the leading shape. Returns, for each step, True if the KF
+    violates motion (any check fails): a bool for (3,) steps, else a bool
+    array.
 
     Quirk preserved: all three per-plane limits use the *xy* tracking angle
     (reference :2902 uses tracking_xy_degree for xy, yz and zx).
 
-    Each call counts as one ``mc_steps`` (``utils/trace``)."""
-    trace.count("mc_steps")
+    Each step tested counts as one ``mc_steps`` (``utils/trace``)."""
+    trace.count("mc_steps", int(np.prod(np.shape(step_post)[:-1])))
     deg = _angle_deg(step_post, prev_step_post)
     tdeg = _angle_deg(step_pre, prev_step_pre)
     fail_dir = np.abs(deg - tdeg) > (
@@ -72,8 +82,8 @@ def motion_violates(step_post, prev_step_post, step_pre, prev_step_pre,
         * degree_margin)
 
     eps = _F32(1e-12)
-    mr = np.linalg.norm(step_post) / np.maximum(np.linalg.norm(prev_step_post), eps)
-    tmr = np.linalg.norm(step_pre) / np.maximum(np.linalg.norm(prev_step_pre), eps)
+    mr = _length(step_post) / np.maximum(_length(prev_step_post), eps)
+    tmr = _length(step_pre) / np.maximum(_length(prev_step_pre), eps)
     rfac = _F32(params.ratio_mult) * movement_margin
     fail_ratio = ((mr / np.maximum(tmr, eps)) > rfac) | ((tmr / np.maximum(mr, eps)) > rfac)
 
@@ -82,8 +92,34 @@ def motion_violates(step_post, prev_step_post, step_pre, prev_step_pre,
     pre = [_plane_angle_deg(step_pre, prev_step_pre, i, j) for i, j in planes]
     lim_pl = (np.minimum(pre[0] * _F32(params.plane_track_mult), _F32(params.plane_cap_deg))
               * degree_margin)
-    fail_plane = any(np.abs(a - b) > lim_pl for a, b in zip(post, pre))
-    return bool(fail_dir | fail_ratio | fail_plane)
+    fail = fail_dir | fail_ratio
+    for a, b in zip(post, pre):
+        fail = fail | (np.abs(a - b) > lim_pl)
+    return bool(fail) if np.ndim(fail) == 0 else fail
+
+
+def _run_before(flag: np.ndarray) -> np.ndarray:
+    """For each slot, the length of the run of True in ``flag`` that ends
+    just before it (0 where ``flag`` is False one slot before)."""
+    at = np.arange(flag.shape[0])
+    last_false = np.maximum.accumulate(np.where(flag, -1, at))
+    run = np.zeros(flag.shape[0], np.int64)
+    run[1:] = (at - last_false)[:-1]
+    return run
+
+
+def _relaxed_margins(run: np.ndarray, params: MotionCheckParams) -> np.ndarray:
+    """The reverse pass's margin after ``run`` relaxations from 1: each one
+    ``min(m * margin_relax, margin_cap)`` in float32, as the reference
+    updates it a KF at a time (:3716-3729)."""
+    relax, cap = _F32(params.margin_relax), _F32(params.margin_cap)
+    table = [_F32(1.0)]
+    while len(table) <= run.max(initial=0):
+        m = np.minimum(table[-1] * relax, cap)
+        if m == table[-1]:           # a fixed point: every later entry equals it
+            break
+        table.append(m)
+    return np.asarray(table, _F32)[np.minimum(run, len(table) - 1)]
 
 
 def motion_check_pass(pos_post: np.ndarray, pos_pre: np.ndarray, valid: np.ndarray,
@@ -94,42 +130,41 @@ def motion_check_pass(pos_post: np.ndarray, pos_pre: np.ndarray, valid: np.ndarr
     pos_post/pos_pre: (N, 3) float32; valid: (N,) live slots in scan
     order; doubt0: (N,) doubt at pass start (doubted KFs are skipped
     entirely, reference :3698-3703). Returns (doubt (N,) i32, n_failures).
+
+    The reference walks the KFs one at a time, but nothing a step decides
+    feeds a later step of the pass: which KFs become anchors and the
+    reverse pass's margins read only ``valid`` and ``doubt0``. So every
+    step's two anchors (the last two processed KFs before it, slot 0 until
+    there are two) and its margin are worked out first, and all steps are
+    tested in one ``motion_violates`` call.
     """
     n_valid = int(valid.sum())
     rank = np.cumsum(valid.astype(np.int64))      # 1-based KF_check_count
     in_window = (rank > params.skip_edge_kfs) & (rank < n_valid - params.skip_edge_kfs)
     thres = params.violate_doubt_thres
-    one, relax_f, cap = _F32(1.0), _F32(params.margin_relax), _F32(params.margin_cap)
-    last = last2 = nanchors = 0
-    deg_m = mov_m = one
+    # anchors advance on every processed KF, edge KFs included (:3752-3778)
+    process = valid & ~(in_window & (doubt0 >= thres))
+    anchors = np.concatenate([np.zeros(2, np.int64), np.flatnonzero(process)])
+    before = np.cumsum(process) - process         # processed KFs before each slot
+    last, last2 = anchors[before + 1], anchors[before]
+    tested = process & in_window & (before >= 2)
+    if reverse:
+        # margin relaxation when recent anchors carry doubt, else reset
+        # (:3716-3729), updated after every slot and read by the next
+        doubted = (doubt0[last] >= thres) | (doubt0[last2] >= thres)
+        margin = _relaxed_margins(_run_before(doubted), params)[tested]
+    else:
+        margin = _F32(1.0)
+    k = np.flatnonzero(tested)
+    lk, l2k = last[k], last2[k]
+    fail = motion_violates(
+        pos_post[k] - pos_post[lk], pos_post[lk] - pos_post[l2k],
+        pos_pre[k] - pos_pre[lk], pos_pre[lk] - pos_pre[l2k],
+        margin, margin, params)
     doubt = doubt0.astype(np.int32).copy()
-    nfail = 0
-    for k in range(pos_post.shape[0]):
-        act = bool(valid[k])
-        skipped = act and bool(in_window[k]) and doubt0[k] >= thres
-        process = act and not skipped
-        if process and in_window[k] and nanchors >= 2:
-            fail = motion_violates(
-                pos_post[k] - pos_post[last], pos_post[last] - pos_post[last2],
-                pos_pre[k] - pos_pre[last], pos_pre[last] - pos_pre[last2],
-                deg_m, mov_m, params)
-            if fail:
-                doubt[k] += 1
-                doubt[last] += 1        # nanchors >= 2 here
-                nfail += 1
-        # margin update for the NEXT iteration (reference :3716-3729):
-        # the reverse pass relaxes when recent anchors carry doubt; else reset
-        if reverse:
-            if doubt0[last] >= thres or doubt0[last2] >= thres:
-                deg_m = np.minimum(deg_m * relax_f, cap)
-                mov_m = np.minimum(mov_m * relax_f, cap)
-            else:
-                deg_m = mov_m = one
-        # anchor update for every processed KF (edge KFs included, :3752-3778)
-        if process:
-            last2, last = last, k
-            nanchors = min(nanchors + 1, 2)
-    return doubt, nfail
+    np.add.at(doubt, k[fail], 1)
+    np.add.at(doubt, lk[fail], 1)      # one anchor may take doubt from two steps
+    return doubt, int(fail.sum())
 
 
 class MotionCheckVerdict(NamedTuple):
@@ -158,10 +193,7 @@ def run_motion_check(pos_post, pos_pre, valid, params: MotionCheckParams
         doubt = doubt_r[::-1].copy()
         violate = valid & (doubt >= params.violate_doubt_thres)
         # longest consecutive violating run (CheckMVKF :3932)
-        longest = cur = 0
-        for v in violate:
-            cur = cur + 1 if v else 0
-            longest = max(longest, cur)
+        longest = int(_run_before(np.append(violate, False)).max())
         # revert if long run OR >= 10% of KFs failed the reverse pass
         # (reference :3805: badKF_counter >= foundKFs.size()/10)
         revert = (longest >= params.revert_run_thres) or (

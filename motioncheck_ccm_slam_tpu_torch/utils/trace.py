@@ -61,7 +61,7 @@ TABLE = (
           "uploads from pageable memory, boolean-mask indexing",
           ("gba_host_syncs",)),
     Entry("mc_steps", "counter", "mc_passes",
-          "motion_check.motion_violates calls: the step tests of both passes",
+          "step tests of both passes, one a KF tested",
           ("mc_steps_per_gba",)),
     Entry("loop_detect", "span", None,
           "loop_closing.LoopCloser.detect: the BoW query and the covisibility consistency",

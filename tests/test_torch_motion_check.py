@@ -5,7 +5,8 @@ The verdicts must be identical to the JAX package's, not close: revert
 flag, violate mask, doubt counts, longest violating run and reverse-pass
 failures, on the scenes of tests/test_motion_check.py (clean GBA, one
 corrupted KF, garbage GBA, corrupted edge KFs, a global scale change) and
-on two scenes with invalid slots. ``apply_verdict`` must give identical
+on two scenes with invalid slots; on the same scenes the array passes
+equal the per-step loop they replaced. ``apply_verdict`` must give identical
 blocks (poses within 1e-6, the rest equal), and the map-state reductions
 (observation counts, gathered observations) equal arrays.
 
@@ -33,6 +34,7 @@ from motioncheck_ccm_slam_tpu_torch.models import map_state as tms
 from motioncheck_ccm_slam_tpu_torch.models import motion_check as tmc
 
 from test_motion_check import smooth_trajectory
+from test_torch_motion_check_array import assert_passes_equal_the_loop
 import torch_one_thread  # noqa: F401 (torch on one thread)
 
 JP, TP_ = JParams(skip_edge_kfs=3), TParams(skip_edge_kfs=3)
@@ -173,6 +175,13 @@ def test_run_motion_check_verdict_identical(name):
     vt = tmc.run_motion_check(torch.from_numpy(post), torch.from_numpy(pre),
                               torch.from_numpy(valid), TP_)
     _assert_same_verdict(vt, vj)
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_array_pass_equals_the_loop_on_the_scenes(name):
+    """The array passes against the per-step loop they replaced
+    (tests/test_torch_motion_check_array.py), bitwise, on each scene."""
+    assert_passes_equal_the_loop(*_scene(name), TP_)
 
 
 def test_verdicts_are_the_scenes_expected_ones():

@@ -5,12 +5,13 @@ under a profiler, totals zeroed in place, every row present at import),
 then one MC-gated GBA on the tile route at a CPU size (``entry``'s server
 scene cut to 4 x 32 keyframes of 64 features and 2048 landmarks) under
 ``torch.profiler``: each span's ranges lie inside its declared parent's,
-``mc_steps`` counts the ``motion_violates`` calls, ``pcg_exit_read`` the
+``mc_steps`` counts the steps ``motion_violates`` tests, ``pcg_exit_read`` the
 PCG exit tests, and ``host_syncs`` at least those.
 """
 import dataclasses
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -98,9 +99,9 @@ def test_small_gba_spans_nest_and_counters_count(monkeypatch):
     steps, exits = [0], [0]
     violates, all_true = motion_check.motion_violates, sharded_ba.Shards.all_true
 
-    def counted_violates(*a, **kw):
-        steps[0] += 1
-        return violates(*a, **kw)
+    def counted_violates(step_post, *a, **kw):
+        steps[0] += int(np.prod(np.shape(step_post)[:-1]))      # one step a row
+        return violates(step_post, *a, **kw)
 
     def counted_all_true(self, flag):
         exits[0] += 1
